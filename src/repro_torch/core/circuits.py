@@ -1,0 +1,190 @@
+"""Boolean circuits over XOR-replicated shares, gate by gate.
+
+The port of ``repro.core.circuits``'s gate-by-gate path: every interactive
+AND goes through :func:`.sharing.and_` (the ``rss_gate`` kernel on a CUDA
+tensor). The PRF folds (7, 11, 21, 22, 31, 32, 100+d, 200+d and d for the
+equality tree) and the ledger entries are the reference's, so shares and
+(rounds, bytes/party) are bit-identical to it. The fused single-launch
+kernels of the reference (``ks_prefix``, ``and_fold``, ``a2b_kernel``,
+``bit2a_kernel``) are not ported yet.
+
+==============  ========================  ==========================
+circuit         rounds                    AND-words / lane
+==============  ========================  ==========================
+eq / eq_public  log2 k            (5)     log2 k            (5)
+lt / le         1 + log2 k        (6)     1 + 2 log2 k      (11)
+lt_public       log2 k            (5)     2 log2 k          (10)
+ks_add          1 + log2 k        (6)     1 + 2 log2 k      (11)
+bit2a           2                         2 (ring mults)
+a2b             2 ks_add          (12)    2 + 4 log2 k      (22)
+==============  ========================  ==========================
+"""
+from __future__ import annotations
+
+import torch
+
+from .ledger import fused_scope
+from .prf import PRFSetup
+from .sharing import AShare, BShare, and_, mul
+
+__all__ = [
+    "eq",
+    "eq_public",
+    "lt",
+    "le",
+    "lt_public",
+    "le_public",
+    "gt_public",
+    "ks_add",
+    "bit2a",
+    "a2b",
+    "and_bit",
+    "or_bit",
+]
+
+
+def _and_pair(a1: BShare, b1: BShare, a2: BShare, b2: BShare, prf: PRFSetup):
+    """Two independent ANDs evaluated in a single communication round."""
+    x = BShare(torch.stack([a1.shares, a2.shares], dim=1))
+    y = BShare(torch.stack([b1.shares, b2.shares], dim=1))
+    z = and_(x, y, prf)
+    return BShare(z.shares[:, 0]), BShare(z.shares[:, 1])
+
+
+# -----------------------------------------------------------------------------
+# Equality
+# -----------------------------------------------------------------------------
+
+def _and_reduce_bits(v: BShare, prf: PRFSetup, width: int) -> BShare:
+    """AND all ``width`` bits of each lane into the LSB (log2(width) rounds)."""
+    d = width // 2
+    while d >= 1:
+        v = and_(v, v >> d, prf.fold(d))
+        d //= 2
+    return v.and_public(1)
+
+
+def eq(x: BShare, y: BShare, prf: PRFSetup, width: int | None = None) -> BShare:
+    """x == y -> single-bit BShare in the LSB: a log2(k)-deep AND tree."""
+    width = width or x.ring.bits
+    with fused_scope("eq", rounds=width.bit_length() - 1):
+        return _and_reduce_bits(~(x ^ y), prf, width)
+
+
+def eq_public(x: BShare, c, prf: PRFSetup, width: int | None = None) -> BShare:
+    width = width or x.ring.bits
+    with fused_scope("eq", rounds=width.bit_length() - 1):
+        return _and_reduce_bits(~(x.xor_public(c)), prf, width)
+
+
+# -----------------------------------------------------------------------------
+# Comparison: unsigned borrow-lookahead (Kogge-Stone prefix)
+# -----------------------------------------------------------------------------
+
+def _ks_levels(g: BShare, p: BShare, prf: PRFSetup, width: int, fold_base: int) -> BShare:
+    """All Kogge-Stone levels of the (g, p) prefix recurrence; returns the
+    final g. One batched AND pair per level."""
+    d = 1
+    while d < width:
+        pg, pp = _and_pair(p, g << d, p, p << d, prf.fold(fold_base + d))
+        g = g ^ pg
+        p = pp
+        d *= 2
+    return g
+
+
+def lt(x: BShare, y: BShare, prf: PRFSetup, width: int | None = None) -> BShare:
+    """Unsigned x < y -> single-bit BShare (borrow-out of x - y)."""
+    width = width or x.ring.bits
+    levels = width.bit_length() - 1
+    with fused_scope("lt", rounds=1 + levels):
+        g = and_(~x, y, prf.fold(7))  # borrow generate: x_j=0, y_j=1
+        p = ~(x ^ y)  # borrow propagate: x_j == y_j (local)
+        b = _ks_levels(g, p, prf, width, fold_base=100)
+        return (b >> (width - 1)).and_public(1)
+
+
+def lt_public(x: BShare, c: int, prf: PRFSetup, width: int | None = None) -> BShare:
+    """x < c with public c: the generate AND becomes local (saves a round)."""
+    width = width or x.ring.bits
+    levels = width.bit_length() - 1
+    c = c & x.ring.mask
+    with fused_scope("lt", rounds=levels):
+        g = (~x).and_public(c)
+        p = ~(x.xor_public(c))
+        b = _ks_levels(g, p, prf, width, fold_base=100)
+        return (b >> (width - 1)).and_public(1)
+
+
+def le(x: BShare, y: BShare, prf: PRFSetup, width: int | None = None) -> BShare:
+    """x <= y  ==  not (y < x)."""
+    return _not_bit(lt(y, x, prf, width))
+
+
+def le_public(x: BShare, c: int, prf: PRFSetup, width: int | None = None) -> BShare:
+    """x <= c (public c)  ==  x < c+1."""
+    return lt_public(x, (c + 1) & x.ring.mask, prf, width)
+
+
+def gt_public(x: BShare, c: int, prf: PRFSetup, width: int | None = None) -> BShare:
+    """x > c (public c) == not(x < c+1)."""
+    return _not_bit(lt_public(x, (c + 1) & x.ring.mask, prf, width))
+
+
+def _not_bit(b: BShare) -> BShare:
+    """Negate a single-bit share (flip only the LSB)."""
+    return b.xor_public(1)
+
+
+def and_bit(a: BShare, b: BShare, prf: PRFSetup) -> BShare:
+    return and_(a, b, prf)
+
+
+def or_bit(a: BShare, b: BShare, prf: PRFSetup) -> BShare:
+    return _not_bit(and_(_not_bit(a), _not_bit(b), prf))
+
+
+# -----------------------------------------------------------------------------
+# Kogge–Stone adder (boolean addition; used by a2b)
+# -----------------------------------------------------------------------------
+
+def ks_add(x: BShare, y: BShare, prf: PRFSetup, width: int | None = None) -> BShare:
+    width = width or x.ring.bits
+    levels = width.bit_length() - 1
+    with fused_scope("ks_add", rounds=1 + levels):
+        g = and_(x, y, prf.fold(11))
+        p = x ^ y
+        g = _ks_levels(g, p, prf, width, fold_base=200)
+        return x ^ y ^ (g << 1)
+
+
+# -----------------------------------------------------------------------------
+# Share conversions
+# -----------------------------------------------------------------------------
+
+def _trivial(words: torch.Tensor, slot: int) -> torch.Tensor:
+    """Share triple (0,..,v,..,0) with v at ``slot`` — locally constructible
+    by the two parties that hold that share leg."""
+    z = torch.zeros((3,) + tuple(words.shape), dtype=words.dtype, device=words.device)
+    z[slot] = words
+    return z
+
+
+def bit2a(b: BShare, prf: PRFSetup) -> AShare:
+    """Single-bit XOR sharing -> arithmetic sharing of {0,1}: XOR emulated
+    twice as u ^ v = u + v - 2uv. Two ring multiplications, 2 rounds."""
+    with fused_scope("bit2a", rounds=2):
+        bits = b.shares & 1
+        a0, a1, a2 = (AShare(_trivial(bits[i], i)) for i in range(3))
+        t = a0 + a1 - mul(a0, a1, prf.fold(21)).mul_public(2)
+        return t + a2 - mul(t, a2, prf.fold(22)).mul_public(2)
+
+
+def a2b(x: AShare, prf: PRFSetup, width: int | None = None) -> BShare:
+    """Arithmetic -> boolean: boolean-share each arithmetic leg trivially,
+    then two Kogge-Stone additions (2 * (1 + log2 k) rounds)."""
+    width = width or x.ring.bits
+    with fused_scope("a2b", rounds=2 * (1 + width.bit_length() - 1)):
+        legs = [BShare(_trivial(x.shares[i], i)) for i in range(3)]
+        s = ks_add(legs[0], legs[1], prf.fold(31), width)
+        return ks_add(s, legs[2], prf.fold(32), width)

@@ -1,0 +1,117 @@
+"""Static communication-cost ledger for the simulated 3-party protocols.
+
+For every protocol primitive the ledger records the synchronous rounds and
+the bytes each party sends. Costs depend only on shapes, so they are the same
+on every device: the per-node tallies are the parity signal against
+``repro.core.ledger``. Use::
+
+    with CommLedger() as led:
+        protocol(...)
+    print(led.tally())
+
+``fused(op, rounds)`` coalesces the entries logged inside it into one entry
+with ``rounds`` rounds (independent gates that share rounds), and runs of
+identical entries coalesce into one entry with a ``count``.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Dict, List, Optional
+
+__all__ = ["CommEntry", "CommLedger", "log_comm", "active_ledger", "fused_scope"]
+
+_STATE = threading.local()
+
+
+def _stack() -> List["CommLedger"]:
+    if not hasattr(_STATE, "stack"):
+        _STATE.stack = []
+    return _STATE.stack
+
+
+@dataclasses.dataclass
+class CommEntry:
+    op: str
+    rounds: int
+    bytes_per_party: int
+    count: int = 1
+
+
+class CommLedger:
+    """Accumulates (rounds, bytes/party) per protocol op."""
+
+    def __init__(self) -> None:
+        self.entries: List[CommEntry] = []
+        self._fuse_depth = 0
+        self._fuse_buffer: List[CommEntry] = []
+
+    def __enter__(self) -> "CommLedger":
+        _stack().append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        top = _stack().pop()
+        if top is not self:
+            raise RuntimeError("CommLedger stack corrupted")
+
+    @staticmethod
+    def _append(target: List[CommEntry], entry: CommEntry) -> None:
+        """Append, coalescing runs of identical (op, rounds, bytes) entries
+        into one entry whose ``count`` is the true repetition count."""
+        if target:
+            last = target[-1]
+            if (
+                last.op == entry.op
+                and last.rounds == entry.rounds
+                and last.bytes_per_party == entry.bytes_per_party
+            ):
+                last.count += entry.count
+                return
+        target.append(entry)
+
+    def log(self, op: str, rounds: int, bytes_per_party: int) -> None:
+        entry = CommEntry(op, rounds, bytes_per_party)
+        self._append(self._fuse_buffer if self._fuse_depth > 0 else self.entries, entry)
+
+    @contextlib.contextmanager
+    def fused(self, op: str, rounds: int):
+        """Coalesce nested logs into one entry with the given round count."""
+        self._fuse_depth += 1
+        mark = len(self._fuse_buffer)
+        try:
+            yield
+        finally:
+            self._fuse_depth -= 1
+            sub = self._fuse_buffer[mark:]
+            del self._fuse_buffer[mark:]
+            total_bytes = sum(e.bytes_per_party * e.count for e in sub)
+            entry = CommEntry(op, rounds, total_bytes)
+            target = self._fuse_buffer if self._fuse_depth > 0 else self.entries
+            self._append(target, entry)
+
+    def tally(self) -> Dict[str, int]:
+        total_bytes = sum(e.bytes_per_party * e.count for e in self.entries)
+        total_rounds = sum(e.rounds * e.count for e in self.entries)
+        return {"bytes_per_party": total_bytes, "rounds": total_rounds}
+
+
+def active_ledger() -> Optional[CommLedger]:
+    stack = _stack()
+    return stack[-1] if stack else None
+
+
+def log_comm(op: str, rounds: int, bytes_per_party: int) -> None:
+    """Log one sync point on the active ledger (a no-op without one)."""
+    led = active_ledger()
+    if led is not None:
+        led.log(op, rounds, bytes_per_party)
+
+
+def fused_scope(op: str, rounds: int):
+    """``active_ledger().fused(...)``, or a no-op when no ledger is active."""
+    led = active_ledger()
+    if led is None:
+        return contextlib.nullcontext()
+    return led.fused(op, rounds)

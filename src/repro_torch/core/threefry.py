@@ -1,0 +1,165 @@
+"""Threefry-2x32 in PyTorch, bit-exact to ``jax.random`` (jax 0.9.0 with
+``jax_threefry_partitionable=True``).
+
+Shares, ledgers and the Resizer's revealed sizes all derive from the PRF, so
+the port carries its own copy of JAX's generator:
+
+* a key is a ``(2,)`` int32 tensor on the CPU (a raw threefry key, the bit
+  pattern of JAX's ``uint32`` key data). Key derivation (``PRNGKey``,
+  ``fold_in``, ``split``) hashes a handful of words, so it runs as plain
+  Python integer arithmetic and never touches the device;
+* draws (``bits``, ``uniform``, ``permutation``) run on the ``device`` they
+  are asked for, with the key's two words entering as scalars — no host to
+  device copy, so nothing synchronises the stream.
+
+Partitionable layout: element ``i`` of a draw of ``shape`` hashes the 64-bit
+counter ``i`` (row-major) split as ``(hi, lo)`` 32-bit words; ``bits`` is the
+XOR of the two output words, ``split(key, n)[i]`` is the output pair itself,
+and ``fold_in(key, d)`` hashes the single pair ``(0, d)``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple, Union
+
+import torch
+
+from .ring import MASK32, s32
+
+__all__ = [
+    "PRNGKey",
+    "fold_in",
+    "split",
+    "bits",
+    "uniform",
+    "permutation",
+    "key_words",
+    "make_key",
+]
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+_INT32_MIN = -(1 << 31)
+
+Word = Union[int, torch.Tensor]
+
+
+def make_key(hi: int, lo: int) -> torch.Tensor:
+    return torch.tensor([s32(hi), s32(lo)], dtype=torch.int32)
+
+
+def key_words(key: torch.Tensor) -> Tuple[int, int]:
+    """The two uint32 words of a (2,) key, as Python ints."""
+    k = key.tolist()
+    return k[0] & MASK32, k[1] & MASK32
+
+
+def _hash(k1: int, k2: int, x0: Word, x1: Word) -> Tuple[Word, Word]:
+    """Threefry-2x32, 20 rounds. Key words are uint32 Python ints; the
+    counter words are either uint32 Python ints or int32 tensors (which wrap
+    mod 2^32 like uint32)."""
+    if isinstance(x0, torch.Tensor):
+
+        def add(a, b):
+            return a + (s32(b) if isinstance(b, int) else b)
+
+        def rotl(x, r):
+            return (x << r) | ((x >> (32 - r)) & ((1 << r) - 1))
+
+    else:
+
+        def add(a, b):
+            return (a + b) & MASK32
+
+        def rotl(x, r):
+            return ((x << r) | (x >> (32 - r))) & MASK32
+
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x0 = add(x0, ks[0])
+    x1 = add(x1, ks[1])
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = add(x0, x1)
+            x1 = rotl(x1, r) ^ x0
+        x0 = add(x0, ks[(i + 1) % 3])
+        x1 = add(x1, (ks[(i + 2) % 3] + i + 1) & MASK32)
+    return x0, x1
+
+
+def PRNGKey(seed: int) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)``: the key ``(seed >> 32, seed & mask)``.
+    Seeds inside int32's range are 32-bit in JAX, so their high word is 0."""
+    hi = 0 if -(1 << 31) <= seed < (1 << 31) else (seed >> 32) & MASK32
+    return make_key(hi, seed & MASK32)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    k1, k2 = key_words(key)
+    return make_key(*_hash(k1, k2, 0, int(data) & MASK32))
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` -> (num, 2) keys."""
+    k1, k2 = key_words(key)
+    out = [_hash(k1, k2, 0, i) for i in range(num)]
+    return torch.tensor([[s32(a), s32(b)] for a, b in out], dtype=torch.int32).reshape(
+        num, 2
+    )
+
+
+def _counters(shape: Tuple[int, ...], device) -> torch.Tensor:
+    numel = math.prod(shape)
+    if numel >= 1 << 31:
+        raise ValueError(f"draw of {numel} words exceeds the int32 counter range")
+    return torch.arange(numel, dtype=torch.int32, device=device).reshape(shape)
+
+
+def bits(key: torch.Tensor, shape: Tuple[int, ...], device) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int32 words on ``device``."""
+    k1, k2 = key_words(key)
+    lo = _counters(tuple(shape), device)
+    b1, b2 = _hash(k1, k2, torch.zeros_like(lo), lo)
+    return b1 ^ b2
+
+
+def uniform(
+    key: torch.Tensor,
+    shape: Tuple[int, ...] = (),
+    minval: float = 0.0,
+    maxval: float = 1.0,
+    device="cpu",
+) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
+    23 bits become the mantissa of a float in [1, 2), minus one, then
+    ``floats * (maxval - minval) + minval``.
+
+    XLA's CPU backend contracts that scaling into a fused multiply-add, so
+    it is computed as one here: the float32 product is exact in float64 and
+    the sum rounds once there before the float32 cast. (That double rounding
+    can differ from a true FMA only when the float64 sum lies exactly on a
+    float32 halfway point.)"""
+    b = bits(key, shape, device)
+    mant = ((b >> 9) & ((1 << 23) - 1)) | 0x3F800000
+    floats = mant.view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    scaled = floats.double() * (hi - lo).double() + lo.double()
+    return torch.maximum(lo, scaled.float())
+
+
+def permutation(key: torch.Tensor, n: int, device) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` as an int64 index tensor.
+
+    JAX's sort-based shuffle: ``ceil(3 ln n / ln(2^32 - 1))`` rounds, each a
+    ``split``, 32-bit sort keys and a *stable* key-value sort (ties among
+    32-bit keys are common at millions of rows, and stability decides them).
+    Unsigned order on int32 storage is signed order after flipping bit 31.
+    """
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(MASK32)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        sort_keys = bits(sub, (n,), device) ^ _INT32_MIN
+        order = torch.sort(sort_keys, stable=True).indices
+        x = x[order]
+    return x

@@ -1,0 +1,59 @@
+"""rss_gate: the 1-round RSS mul / AND gate (CUDA kernel + plain version).
+
+Replaces the Pallas TPU kernel ``repro/kernels/rss_gate/rss_gate.py:43``
+(wrapper ``ops.py:14``, oracle ``ref.py:7``); the CUDA source is
+``kernels/csrc/rss_gate.cu``, which notes its byte bound and design.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import check_launch, library, record_launch
+
+__all__ = ["gate", "gate_plain"]
+
+
+def gate_plain(xs: torch.Tensor, ys: torch.Tensor, alpha: torch.Tensor, boolean: bool) -> torch.Tensor:
+    """The gate in plain PyTorch: cross terms over the share axis (axis 0,
+    rolled by one) plus the zero sharing."""
+    xn = torch.roll(xs, -1, dims=0)
+    yn = torch.roll(ys, -1, dims=0)
+    if boolean:
+        return (xs & ys) ^ (xs & yn) ^ (xn & ys) ^ alpha
+    return xs * ys + xs * yn + xn * ys + alpha
+
+
+def gate(xs: torch.Tensor, ys: torch.Tensor, alpha: torch.Tensor, boolean: bool) -> torch.Tensor:
+    """``z_i = cross(x_i, x_{i+1}, y_i, y_{i+1}) (+|^) alpha_i`` per lane.
+
+    ``xs``, ``ys``, ``alpha``: int32 share triples of one shape ``(3, ...)``
+    (the caller broadcasts operands first; lanes are flattened). A CUDA tensor
+    launches the kernel, a CPU tensor runs :func:`gate_plain`; any other
+    device, dtype, shape or layout raises.
+    """
+    if not (xs.shape == ys.shape == alpha.shape) or xs.dim() < 1 or xs.shape[0] != 3:
+        raise ValueError(
+            f"rss_gate needs three (3, ...) operands of one shape, got "
+            f"{tuple(xs.shape)}, {tuple(ys.shape)}, {tuple(alpha.shape)}"
+        )
+    if not (xs.dtype == ys.dtype == alpha.dtype == torch.int32):
+        raise TypeError(f"rss_gate needs int32 ring words, got {xs.dtype}, {ys.dtype}, {alpha.dtype}")
+    if not (xs.device == ys.device == alpha.device):
+        raise ValueError("rss_gate operands lie on different devices")
+    if xs.device.type == "cpu":
+        return gate_plain(xs, ys, alpha, boolean)
+    if xs.device.type != "cuda":
+        raise ValueError(f"rss_gate runs on cuda or cpu, not {xs.device}")
+    if not (xs.is_contiguous() and ys.is_contiguous() and alpha.is_contiguous()):
+        raise ValueError("rss_gate needs contiguous operands")
+    out = torch.empty_like(xs)
+    n = xs[0].numel()
+    if n == 0:
+        return out
+    err = library().rss_gate_launch(
+        xs.data_ptr(), ys.data_ptr(), alpha.data_ptr(), out.data_ptr(), n,
+        int(boolean), torch.cuda.current_stream(xs.device).cuda_stream,
+    )
+    check_launch("rss_gate", err)
+    record_launch("rss_gate")
+    return out

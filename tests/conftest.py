@@ -22,6 +22,12 @@ except ImportError:  # tier-1 runs without hypothesis installed
     pass
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one"
+    )
+
+
 @pytest.fixture(scope="session")
 def prf():
     from repro.core.prf import setup_prf

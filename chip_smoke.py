@@ -8,21 +8,31 @@ Run from the repository root, with no arguments:
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 runs these phases; each one fails the run (non-zero exit) on any mismatch:
 
-1. kernels: ``rss_gate`` (both modes) and ``shuffle_gather`` against their
-   plain PyTorch versions on the card, bit for bit, at the listed shapes
-   (the gather well above the TPU kernel's 8 MiB VMEM limit);
-2. cross-device: the quickstart plan (n=48) on ``cuda`` and on ``cpu`` gives
-   identical output shares, per-node (rounds, bytes/party) and Resize sizes S;
-3. full size: ``dosage_study`` and the quickstart plan over
-   ``generate_healthlnk(n)`` with Beta(2,6) Resizers on every internal
-   operator. Launch counts are reset before each plan and read after it;
-   both kernels must have launched, and the revealed rows must equal the
-   plaintext oracle. Per-node seconds, S and launch counts are printed;
+1. kernels: ``rss_gate`` (both modes), ``shuffle_gather`` and the fused
+   circuit kernels ``ks_prefix``, ``and_fold``, ``a2b_fused`` and
+   ``bit2a_fused`` against their plain PyTorch versions on the card, bit for
+   bit, at the listed shapes (the gather well above the TPU kernel's 8 MiB
+   VMEM limit; the fused kernels at ragged lane counts, on unaligned planes,
+   at the widths the path uses, and ``bit2a`` on a 2-D lane shape);
+2. cross-device: the quickstart plan (n=48) on the default fused path on
+   ``cuda`` and on ``cpu`` gives identical output shares, per-node (rounds,
+   bytes/party) and Resize sizes S, and on ``cuda`` the gate-by-gate path
+   (``fuse_circuits=False``) gives the same again;
+3. full size over ``generate_healthlnk(n)`` with Beta(2,6) Resizers on every
+   internal operator: ``aspirin_count`` (theta join, COUNT(DISTINCT)) on the
+   fused path, ``dosage_study`` on the fused and on the gate-by-gate path
+   (identical shares, ledgers and S), the quickstart plan, and
+   ``three_join`` at a reduced n (its later product joins grow as n^3 and
+   n^4). Launch counts are reset before each run and read after it; every
+   kernel of that run's path must have launched, and rows or counts must
+   equal the plaintext oracle. Per-node seconds, S and launch counts are
+   printed;
 4. timing: each kernel's median time at the shapes the full-size run gave
    it, beside its plain version, the one-call library equivalent (where one
    exists) and the least time the card could take (``bound_ms``);
 5. with ``--profile`` only: a ``torch.profiler`` breakdown of device time
-   by kernel for one Distinct sort stage and one join tile at full size.
+   by kernel for one stage of the full-size Distinct's sort (2^23 rows) on
+   the fused and on the gate-by-gate path, and one join tile.
 
 The lines before the last are the ``{"kernels": [...]}`` summary and the
 card's name and power limit from ``nvidia-smi``; the last line is
@@ -50,13 +60,26 @@ INT32_OPS_PER_S = 33.5e12
 
 # the full-size run: rows in each healthlnk table (2,048 patients)
 ROWS_PER_TABLE = 8192
+# three_join's rows per table: its second and third product joins hold about
+# S1 * n/4 and S2 * n/4 rows (S: the Resize sizes), which grow as n^3 and n^4
+THREE_JOIN_ROWS = 512
 # the >8 MiB gather of the kernel phase: the product join's size as planned
 GATHER_ROWS = 7_900_000
 # timed calls in a row per kernel measurement
 REPS = 20
 
-RSS_GATE_TPU = "src/repro/kernels/rss_gate/rss_gate.py:43"
-SHUFFLE_GATHER_TPU = "src/repro/kernels/shuffle_gather/shuffle_gather.py:33"
+CSRC = "src/repro_torch/kernels/csrc/"
+# name (as the launch counts have it) -> (CUDA source, TPU kernel it replaces)
+KERNELS = {
+    "rss_gate": (CSRC + "rss_gate.cu", "src/repro/kernels/rss_gate/rss_gate.py:43"),
+    "shuffle_gather": (CSRC + "shuffle_gather.cu", "src/repro/kernels/shuffle_gather/shuffle_gather.py:33"),
+    "ks_prefix": (CSRC + "ks_prefix.cu", "src/repro/kernels/ks_prefix/ks_prefix.py:83"),
+    "and_fold": (CSRC + "ks_prefix.cu", "src/repro/kernels/ks_prefix/ks_prefix.py:111"),
+    "a2b_fused": (CSRC + "a2b_fused.cu", "src/repro/kernels/a2b_fused/a2b_fused.py:78"),
+    "bit2a_fused": (CSRC + "a2b_fused.cu", "src/repro/kernels/a2b_fused/a2b_fused.py:101"),
+}
+GATE_KERNELS = ("rss_gate", "shuffle_gather")  # the gate-by-gate path's
+FUSED_KERNELS = ("ks_prefix", "and_fold", "a2b_fused")  # + bit2a_fused under a COUNT
 
 
 class SmokeFailure(RuntimeError):
@@ -133,7 +156,7 @@ def kernel_phase(dev) -> dict:
     from repro_torch.kernels.rss_gate import gate, gate_plain
     from repro_torch.kernels.shuffle_gather import shuffle_gather, shuffle_gather_plain
 
-    errs = {"rss_gate": 0, "shuffle_gather": 0}
+    errs = dict.fromkeys(KERNELS, 0)
     rng = np.random.default_rng(0)
     for boolean in (True, False):
         for n in (0, 1, 2049, 65_536, 1 << 21):
@@ -166,8 +189,87 @@ def kernel_phase(dev) -> dict:
     err = max_abs_err(got, shuffle_gather_plain(planes, perm))
     print(f"  shuffle_gather (N, C)=(257, 3), 3 indices out of range  max_abs_err={err}")
     check(err == 0 and not got[:, [0, 128, 256]].any(), "shuffle_gather: out-of-range rows differ")
+    fused_kernel_checks(dev, rng, errs)
     reset_launch_counts()
     return errs
+
+
+def operand(rng, shape, dev, aligned: bool):
+    """Random ring words of ``shape`` on the card; unaligned: a view one word
+    into its storage, which sends the kernels down their scalar path."""
+    if aligned:
+        return words(rng, shape, dev)
+    n = 1
+    for d in shape:
+        n *= d
+    return words(rng, (n + 1,), dev)[1:].view(shape)
+
+
+def fused_kernel_checks(dev, rng, errs: dict) -> None:
+    """The four fused circuit kernels against their plain versions, bit for
+    bit: ragged and aligned lane counts, aligned and unaligned planes, the
+    widths the path uses (Kogge-Stone 32 / 18 / 16, fold 32 / 18), and
+    ``bit2a`` on a 2-D lane shape through ``b2a``."""
+    import torch
+
+    from repro_torch.core import threefry
+    from repro_torch.core.circuits import b2a
+    from repro_torch.core.prf import setup_prf
+    from repro_torch.core.sharing import BShare
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.a2b_fused import a2b_kernel, a2b_plain, bit2a_kernel, bit2a_plain
+    from repro_torch.kernels.ks_prefix import (
+        and_fold,
+        and_fold_plain,
+        fold_shifts,
+        ks_prefix,
+        ks_prefix_plain,
+        ks_shifts,
+    )
+
+    def one(name, label, kernel, plain, args):
+        reset_launch_counts()
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        check(launch_counts().get(name, 0) == 1, f"{name} {label} did not launch")
+        err = max_abs_err(got, plain(*args))
+        check(err == 0, f"{name} {label} differs from its plain version")
+        errs[name] = max(errs[name], err)
+
+    for n in (1, 5, 4097, 1 << 21):
+        for aligned in (True, False):
+            label = f"n={n}" + ("" if aligned else " planes one word off 16-byte alignment")
+            for width in (32, 18, 16):
+                sh = ks_shifts(width)
+                g, p = operand(rng, (3, n), dev, aligned), operand(rng, (3, n), dev, aligned)
+                al = operand(rng, (3, 2 * len(sh), n), dev, aligned)
+                one("ks_prefix", f"{label} width={width}", lambda g, p, al, sh=sh: ks_prefix(g, p, al, sh),
+                    lambda g, p, al, sh=sh: ks_prefix_plain(g, p, al, sh), (g, p, al))
+                al = operand(rng, (3, 2 * (1 + 2 * len(sh)), n), dev, aligned)
+                one("a2b_fused", f"{label} width={width}", lambda x, al, sh=sh: a2b_kernel(x, al, sh),
+                    lambda x, al, sh=sh: a2b_plain(x, al, sh), (g, al))
+            for width in (32, 18):
+                sh = fold_shifts(width)
+                v = operand(rng, (3, n), dev, aligned)
+                al = operand(rng, (3, len(sh), n), dev, aligned)
+                one("and_fold", f"{label} width={width}", lambda v, al, sh=sh: and_fold(v, al, sh),
+                    lambda v, al, sh=sh: and_fold_plain(v, al, sh), (v, al))
+            b = operand(rng, (3, n), dev, aligned)
+            al = operand(rng, (3, 2, n), dev, aligned)
+            one("bit2a_fused", label, bit2a_kernel, bit2a_plain, (b, al))
+            print(f"  ks_prefix, a2b_fused (widths 32/18/16), and_fold (32/18), bit2a_fused  {label}  "
+                  f"max_abs_err=0")
+    # bit2a on a (4097, 32) lane shape: b2a's bit planes, on the card against
+    # the same words and PRF keys through the plain versions on the CPU
+    x = BShare(words(rng, (3, 4097), dev))
+    prf = setup_prf(threefry.PRNGKey(9))
+    reset_launch_counts()
+    got = b2a(x, prf)
+    torch.cuda.synchronize()
+    check(launch_counts().get("bit2a_fused", 0) == 1, "b2a did not launch bit2a_fused")
+    err = max_abs_err(got.shares.cpu(), b2a(BShare(x.shares.cpu()), prf).shares)
+    print(f"  bit2a_fused  lanes (4097, 32) via b2a, cuda vs cpu  max_abs_err={err}")
+    check(err == 0, "b2a on the card differs from its plain version on the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -220,13 +322,32 @@ def node_rows(report) -> list:
 # 2. the same plan on cuda and on cpu
 # ---------------------------------------------------------------------------
 
+def share_rows(out) -> dict:
+    """Every output column's and the valid column's shares, on the host."""
+    from repro_torch.core.ring import to_numpy
+
+    rows = {name: to_numpy(out.col(name).shares) for name in out.cols}
+    rows["__valid"] = to_numpy(out.valid.shares)
+    return rows
+
+
+def same_outputs(a, b) -> bool:
+    sa, sb = share_rows(a), share_rows(b)
+    return list(sa) == list(sb) and all((sa[k] == sb[k]).all() for k in sa)
+
+
+def ledger_rows(report) -> list:
+    return [(s.node, s.rounds, s.bytes_per_party, s.n_out, s.extra.get("s")) for s in report.nodes]
+
+
 def cross_device_phase(dev) -> None:
     import numpy as np
     import torch
 
+    from repro_torch import RuntimeConfig
     from repro_torch.core import threefry
-    from repro_torch.core.ring import to_numpy
     from repro_torch.engine import Engine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.ops import SecretTable
 
     rng = np.random.default_rng(7)
@@ -241,63 +362,75 @@ def cross_device_phase(dev) -> None:
     }
     plan = with_resizers(quickstart_plan("pid2"))
     runs = {}
-    for d in (dev, torch.device("cpu")):
+    for label, d, fuse in (("cuda", dev, True), ("cpu", torch.device("cpu"), True), ("cuda gates", dev, False)):
         tables = {
             "diagnoses": SecretTable.from_plaintext(patients, threefry.PRNGKey(0), device=d),
             "medications": SecretTable.from_plaintext(meds, threefry.PRNGKey(1), device=d),
         }
-        runs[d.type] = Engine(tables, key=threefry.PRNGKey(42), device=d).execute(plan)
-    (gout, grep), (cout, crep) = runs["cuda"], runs["cpu"]
-    ledger = [(s.node, s.rounds, s.bytes_per_party, s.n_out, s.extra.get("s")) for s in grep.nodes]
-    check(
-        ledger == [(s.node, s.rounds, s.bytes_per_party, s.n_out, s.extra.get("s")) for s in crep.nodes],
-        "per-node ledgers or Resize sizes differ between cuda and cpu",
-    )
-    check(list(gout.cols) == list(cout.cols), "output columns differ between cuda and cpu")
-    for name in gout.cols:
-        check(
-            (to_numpy(gout.col(name).shares) == to_numpy(cout.col(name).shares)).all(),
-            f"output shares of {name!r} differ between cuda and cpu",
-        )
-    check((to_numpy(gout.valid.shares) == to_numpy(cout.valid.shares)).all(), "valid shares differ")
+        engine = Engine(tables, key=threefry.PRNGKey(42), config=RuntimeConfig(fuse_circuits=fuse), device=d)
+        reset_launch_counts()
+        runs[label] = engine.execute(plan)
+        launches = launch_counts()
+        if d.type == "cuda":  # a CPU tensor runs the plain versions and launches nothing
+            torch.cuda.synchronize()
+            want = GATE_KERNELS + (FUSED_KERNELS if fuse else ())
+            check(all(launches.get(k, 0) > 0 for k in want), f"quickstart n=48 {label}: launches {launches}")
+            check(fuse or not any(launches.get(k, 0) for k in FUSED_KERNELS),
+                  f"quickstart n=48 {label}: the gate-by-gate path launched a fused kernel")
+    (gout, grep), (cout, crep), (uout, urep) = runs["cuda"], runs["cpu"], runs["cuda gates"]
+    check(ledger_rows(grep) == ledger_rows(crep), "per-node ledgers or Resize sizes differ between cuda and cpu")
+    check(same_outputs(gout, cout), "output shares differ between cuda and cpu")
+    check(ledger_rows(grep) == ledger_rows(urep), "fused and gate-by-gate ledgers or sizes differ on cuda")
+    check(same_outputs(gout, uout), "fused and gate-by-gate output shares differ on cuda")
     pids = sorted(set(gout.reveal_true_rows()["pid"].tolist()))
     want = sorted(set(np.intersect1d(patients["pid"][patients["icd9"] == 414],
                                      meds["pid2"][meds["med"] == 1]).tolist()))
     check(pids == want, f"quickstart rows {pids} != oracle {want}")
     sizes = [s.extra["s"] for s in grep.nodes if "s" in s.extra]
-    print(f"  quickstart n=48: shares, ledgers and S={sizes} identical on cuda and cpu; rows {pids}")
+    print(f"  quickstart n=48: shares, ledgers and S={sizes} identical on cuda and cpu (fused) and "
+          f"on cuda gate by gate; rows {pids}")
+    reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------
 # 3. full-size run
 # ---------------------------------------------------------------------------
 
-def full_phase(dev, n: int) -> dict:
+def full_phase(dev, n: int, three_join_n: int) -> dict:
+    """The full-size runs, each with its launch counts set to 0 just before
+    it and read just after."""
     import numpy as np
     import torch
 
+    from repro_torch import RuntimeConfig
     from repro_torch.core import threefry
+    from repro_torch.data import aspirin_count_plan, dosage_study_plan, three_join_plan
     from repro_torch.data.healthlnk import generate_healthlnk, plaintext_oracle
-    from repro_torch.data.queries import dosage_study_plan
     from repro_torch.engine import Engine
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
-    t0 = time.perf_counter()
-    tables, plain = generate_healthlnk(n=n, seed=0, device=dev)
-    torch.cuda.synchronize()
-    print(f"  generate_healthlnk(n={n}): {time.perf_counter() - t0:.3f} s (set-up)")
-    d, m = plain["diagnoses"], plain["medications"]
-    plans = {
-        "dosage_study": (dosage_study_plan(), plaintext_oracle("dosage_study", plain)),
-        "quickstart": (
-            quickstart_plan("pid"),
-            sorted(int(p) for p in np.intersect1d(d["pid"][d["icd9"] == 414],
-                                                  m["pid"][m["med"] == 1])),
-        ),
+    data = {}
+    for rows in (n, three_join_n):
+        t0 = time.perf_counter()
+        data[rows] = generate_healthlnk(n=rows, seed=0, device=dev)
+        torch.cuda.synchronize()
+        print(f"  generate_healthlnk(n={rows}): {time.perf_counter() - t0:.3f} s (set-up)")
+    d, m = data[n][1]["diagnoses"], data[n][1]["medications"]
+    quickstart_rows = sorted(int(p) for p in np.intersect1d(d["pid"][d["icd9"] == 414], m["pid"][m["med"] == 1]))
+    # name -> (plan, rows per table, engine key, fused, expected answer); a
+    # COUNT answers with its count, every other plan with its sorted pids
+    runs = {
+        "aspirin_count": (aspirin_count_plan(), n, 44, True, plaintext_oracle("aspirin_count", data[n][1])),
+        "dosage_study": (dosage_study_plan(), n, 42, True, plaintext_oracle("dosage_study", data[n][1])),
+        "dosage_study gates": (dosage_study_plan(), n, 42, False, plaintext_oracle("dosage_study", data[n][1])),
+        "quickstart": (quickstart_plan("pid"), n, 43, True, quickstart_rows),
+        "three_join": (three_join_plan(), three_join_n, 45, True,
+                       plaintext_oracle("three_join", data[three_join_n][1])),
     }
-    results = {}
-    for i, (name, (plan, want)) in enumerate(plans.items()):
-        engine = Engine(tables, key=threefry.PRNGKey(42 + i), device=dev)
+    results, outputs = {}, {}
+    for name, (plan, rows, key, fuse, want) in runs.items():
+        engine = Engine(data[rows][0], key=threefry.PRNGKey(key), config=RuntimeConfig(fuse_circuits=fuse),
+                        device=dev)
         placed = with_resizers(plan)
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
@@ -308,22 +441,37 @@ def full_phase(dev, n: int) -> dict:
         seconds = time.perf_counter() - t0
         launches = launch_counts()
         reset_launch_counts()
-        rows = sorted(set(out.reveal_true_rows()["pid"].tolist()))
-        print(f"  {name}: {seconds:.3f} s, peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, "
-              f"launches {launches}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        revealed = out.reveal_true_rows()
+        got = int(revealed["cnt"][0]) if "cnt" in revealed else sorted(set(revealed["pid"].tolist()))
+        print(f"  {name} (n={rows}, {'fused' if fuse else 'gate by gate'}): {seconds:.3f} s, "
+              f"peak {peak / 2**30:.2f} GiB, launches {launches}")
         for line in report.summary().splitlines():
             print("    " + line)
-        check(rows == want, f"{name}: revealed rows differ from the plaintext oracle")
-        for kernel in ("rss_gate", "shuffle_gather"):
+        check(got == want, f"{name}: the result differs from the plaintext oracle")
+        need = GATE_KERNELS + (FUSED_KERNELS if fuse else ()) + (("bit2a_fused",) if fuse and "cnt" in revealed else ())
+        for kernel in need:
             check(launches.get(kernel, 0) > 0, f"{name}: {kernel} was never launched")
-        print(f"  {name}: {len(rows)} rows equal the plaintext oracle")
+        if not fuse:
+            check(not any(launches.get(k, 0) for k in FUSED_KERNELS + ("bit2a_fused",)),
+                  f"{name}: the gate-by-gate path launched a fused kernel")
+        print(f"  {name}: " + (f"cnt = {got}" if isinstance(got, int) else f"{len(got)} rows")
+              + " equals the plaintext oracle")
         results[name] = {
+            "n": rows,
+            "fused": fuse,
             "seconds": seconds,
-            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "peak_bytes": peak,
             "launches": launches,
             "nodes": node_rows(report),
-            "rows": len(rows),
+            "result": got if isinstance(got, int) else len(got),
         }
+        if name.startswith("dosage_study"):
+            outputs[name] = (out, report)
+    (fout, frep), (gout, grep) = outputs["dosage_study"], outputs["dosage_study gates"]
+    check(ledger_rows(frep) == ledger_rows(grep), "dosage_study: fused and gate-by-gate ledgers or S differ")
+    check(same_outputs(fout, gout), "dosage_study: fused and gate-by-gate output shares differ")
+    print("  dosage_study: output shares, per-node ledger and every S identical fused and gate by gate")
     return results
 
 
@@ -331,7 +479,7 @@ def full_phase(dev, n: int) -> dict:
 # 4. timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def timing_phase(dev, gate_lanes: int, gather_rows: int) -> dict:
+def timing_phase(dev, shapes: dict) -> dict:
     import numpy as np
     import torch
 
@@ -340,6 +488,7 @@ def timing_phase(dev, gate_lanes: int, gather_rows: int) -> dict:
 
     rng = np.random.default_rng(1)
     out = {}
+    gate_lanes, gather_rows = shapes["gate_lanes"], shapes["join_rows"]
 
     rows = []
     for boolean in (True, False):
@@ -375,6 +524,79 @@ def timing_phase(dev, gate_lanes: int, gather_rows: int) -> dict:
         print(f"  shuffle_gather (N, C)=({n}, {c}): {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"index_select {library_ms:.4f} ms  bound {bound_ms:.4f} ms (bytes)")
     out["shuffle_gather"] = rows
+    out.update(time_fused(dev, rng, shapes))
+    return out
+
+
+def fused_cost(name: str, n: int, levels: int) -> tuple:
+    """(bytes, integer operations) one call must move and do over n lanes
+    with ``levels`` Kogge-Stone or fold levels: every input word read once,
+    the output written once; operations per share word as the kernel counts
+    them (a 3-term AND or product cross term: 3 ANDs / products and 3 XORs /
+    sums)."""
+    if name == "ks_prefix":  # g, p, 2L alpha words in; g out
+        return n * (24 + 24 * levels + 12), n * 3 * 15 * levels
+    if name == "and_fold":  # v, L alpha words in; v out
+        return n * (12 + 12 * levels + 12), n * 3 * 7 * levels
+    if name == "a2b_fused":  # x, 2(1 + 2L) alpha words in; the result out
+        return n * (12 + 24 * (1 + 2 * levels) + 12), n * 3 * 2 * (10 + 15 * levels)
+    return n * 48, n * 3 * 19  # bit2a_fused: b, 2 alpha words in; the result out
+
+
+def time_fused(dev, rng, shapes: dict) -> dict:
+    """The fused kernels at the shapes the full-size run gave them: the sort's
+    32-bit ``lt`` and segment-start ``eq`` over Distinct's rows, the Resize's
+    18-bit coin ``a2b`` and 16-bit ``lt_public`` over the rows it trims, and
+    COUNT's ``bit2a`` over CountDistinct's rows."""
+    from repro_torch.kernels.a2b_fused import a2b_kernel, a2b_plain, bit2a_kernel, bit2a_plain
+    from repro_torch.kernels.ks_prefix import (
+        and_fold,
+        and_fold_plain,
+        fold_shifts,
+        ks_prefix,
+        ks_prefix_plain,
+        ks_shifts,
+    )
+
+    cases = [
+        ("ks_prefix", shapes["sort_rows"], 32), ("ks_prefix", shapes["resize_rows"], 16),
+        ("and_fold", shapes["sort_rows"], 32),
+        ("a2b_fused", shapes["resize_rows"], 18),
+        ("bit2a_fused", shapes["count_rows"], None),
+    ]
+    out: dict = {}
+    for name, n, width in cases:
+        if name == "ks_prefix":
+            sh = ks_shifts(width)
+            args = (words(rng, (3, n), dev), words(rng, (3, n), dev), words(rng, (3, 2 * len(sh), n), dev))
+            kernel, plain = (lambda g, p, a, sh=sh: ks_prefix(g, p, a, sh)), (
+                lambda g, p, a, sh=sh: ks_prefix_plain(g, p, a, sh))
+        elif name == "and_fold":
+            sh = fold_shifts(width)
+            args = (words(rng, (3, n), dev), words(rng, (3, len(sh), n), dev))
+            kernel, plain = (lambda v, a, sh=sh: and_fold(v, a, sh)), (lambda v, a, sh=sh: and_fold_plain(v, a, sh))
+        elif name == "a2b_fused":
+            sh = ks_shifts(width)
+            args = (words(rng, (3, n), dev), words(rng, (3, 2 * (1 + 2 * len(sh)), n), dev))
+            kernel, plain = (lambda x, a, sh=sh: a2b_kernel(x, a, sh)), (lambda x, a, sh=sh: a2b_plain(x, a, sh))
+        else:
+            sh = ()
+            args = (words(rng, (3, n), dev), words(rng, (3, 2, n), dev))
+            kernel, plain = bit2a_kernel, bit2a_plain
+        err = max_abs_err(kernel(*args), plain(*args))
+        check(err == 0, f"{name} n={n} width={width} differs from its plain version")
+        ms = median_ms(lambda: kernel(*args))
+        plain_ms = median_ms(lambda: plain(*args))
+        bytes_moved, ops = fused_cost(name, n, len(sh))
+        bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
+        by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S else "operations"
+        out.setdefault(name, []).append({
+            "n": n, "width": width, "bytes": bytes_moved, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err, "library_ms": None})
+        w = f" width={width}" if width else ""
+        print(f"  {name:<12} n={n:>9}{w}: {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({by}, "
+              f"{bytes_moved / 2**20:.1f} MiB), {100 * bound_ms / ms:.1f} % of the bound")
+        del args
     return out
 
 
@@ -384,10 +606,9 @@ def timing_phase(dev, gate_lanes: int, gather_rows: int) -> dict:
 
 def _kernel_category(name: str) -> str:
     low = name.lower()
-    if "rss_gate" in low:
-        return "rss_gate kernel"
-    if "shuffle_gather" in low:
-        return "shuffle_gather kernel"
+    for kernel in ("rss_gate", "shuffle_gather", "ks_prefix", "and_fold", "a2b", "bit2a"):
+        if kernel in low:
+            return f"{kernel} kernel"
     if "sort" in low or "radix" in low:
         return "sort (torch)"
     if "index" in low or "gather" in low or "scatter" in low:
@@ -440,6 +661,7 @@ def profile_phase(dev, distinct_rows: int) -> dict:
     from repro_torch.core.prf import setup_prf
     from repro_torch.core.sharing import BShare
     from repro_torch.core.sort import _stage
+    from repro_torch.kernels import override_fusion
     from repro_torch.ops import SecretTable
     from repro_torch.ops.join import oblivious_join
 
@@ -452,28 +674,49 @@ def profile_phase(dev, distinct_rows: int) -> dict:
     side = {"pid": rng.integers(0, 64, 256).astype(np.uint32)}
     left = SecretTable.from_plaintext(side, threefry.PRNGKey(4), device=dev)
     right = SecretTable.from_plaintext(side, threefry.PRNGKey(5), device=dev)
+
+    def stage(fuse: bool):
+        with override_fusion(fuse):
+            _stage(net, ["__sk"], 4, 2, prf, False)
+
     return {
-        "distinct_stage": _profile_window(
-            f"one bitonic stage, {distinct_rows} rows",
-            lambda: _stage(net, ["__sk"], 4, 2, prf, False)),
+        "distinct_stage_fused": _profile_window(
+            f"one bitonic stage, {distinct_rows} rows, fused", lambda: stage(True)),
+        "distinct_stage_gates": _profile_window(
+            f"one bitonic stage, {distinct_rows} rows, gate by gate", lambda: stage(False)),
         "join_tile": _profile_window(
-            "one join tile, 65536 product rows",
+            "one join tile, 65536 product rows, fused",
             lambda: oblivious_join(left, right, ("pid", "pid"), prf)),
     }
 
 
-def largest_shapes(full: dict) -> tuple:
-    """(gate lanes, gather rows) of the full-size run: the bitonic sort's
-    compare-exchange pairs over the Distinct's power-of-two rows (two words
-    per row, ``_and_pair``) and the Resize shuffle right after the join."""
-    distinct_rows = join_rows = 1
+def largest_shapes(full: dict) -> dict:
+    """The largest shapes the full-size runs gave the kernels: the rows of a
+    bitonic sort (Distinct's power-of-two rows; CountDistinct pads its input
+    to them), of a Resize's input, of a product join, and of COUNT's bit2a
+    (the CountDistinct's sort rows); and Distinct's rows alone, the stage
+    that ``--profile`` traces."""
+    def pow2(k: int) -> int:
+        return 1 << max(k - 1, 0).bit_length()
+
+    sort_rows = join_rows = resize_rows = count_rows = distinct_rows = 1
     for res in full.values():
         for node in res["nodes"]:
-            if node["node"].startswith("Distinct"):
+            name, n_in = node["node"], node["n_ins"][0] if node["n_ins"] else 0
+            if name.startswith("Distinct"):
                 distinct_rows = max(distinct_rows, node["n_out"])
-            if node["node"].startswith("Join"):
+                sort_rows = max(sort_rows, node["n_out"])
+            if name.startswith("CountDistinct"):
+                sort_rows = max(sort_rows, pow2(n_in))
+                count_rows = max(count_rows, pow2(n_in))
+            if name.startswith("Join"):
                 join_rows = max(join_rows, node["n_out"])
-    return 2 * distinct_rows, join_rows
+            if name.startswith("Resize"):
+                resize_rows = max(resize_rows, n_in)
+    # rss_gate's largest call: the sort's select over its two network
+    # columns (key and row index), two words a row
+    return {"gate_lanes": 2 * sort_rows, "sort_rows": sort_rows, "join_rows": join_rows,
+            "resize_rows": resize_rows, "count_rows": count_rows, "distinct_rows": distinct_rows}
 
 
 def main(argv=None) -> int:
@@ -508,36 +751,34 @@ def main(argv=None) -> int:
     print("[2] cross-device: quickstart n=48 on cuda and cpu")
     cross_device_phase(dev)
 
-    print(f"[3] full size: n={ROWS_PER_TABLE} rows per table")
-    full = full_phase(dev, ROWS_PER_TABLE)
+    print(f"[3] full size: n={ROWS_PER_TABLE} rows per table (three_join: n={THREE_JOIN_ROWS})")
+    full = full_phase(dev, ROWS_PER_TABLE, THREE_JOIN_ROWS)
 
-    gate_lanes, join_rows = largest_shapes(full)
-    print(f"[4] kernel timing at the run's shapes (gate lanes {gate_lanes}, gather rows {join_rows})")
-    timing = timing_phase(dev, gate_lanes, join_rows)
+    shapes = largest_shapes(full)
+    print(f"[4] kernel timing at the run's shapes {shapes}")
+    timing = timing_phase(dev, shapes)
 
     profiled = None
     if args.profile:
         print("[5] device-time breakdown (torch.profiler)")
-        profiled = profile_phase(dev, gate_lanes // 2)
+        profiled = profile_phase(dev, shapes["distinct_rows"])
 
-    launches = {k: sum(r["launches"].get(k, 0) for r in full.values()) for k in errs}
-    g = max(timing["rss_gate"], key=lambda r: (r["n"], r["boolean"]))
-    s = max(timing["shuffle_gather"], key=lambda r: r["n"])
-    summary = {"kernels": [
-        {"name": "rss_gate", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rss_gate.cu",
-         "replaces": RSS_GATE_TPU, "launches": launches["rss_gate"],
-         "max_abs_err": max(errs["rss_gate"], *(r["max_abs_err"] for r in timing["rss_gate"])),
-         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
-         "library_ms": None},
-        {"name": "shuffle_gather", "route": "cuda", "source": "src/repro_torch/kernels/csrc/shuffle_gather.cu",
-         "replaces": SHUFFLE_GATHER_TPU, "launches": launches["shuffle_gather"],
-         "max_abs_err": max(errs["shuffle_gather"], *(r["max_abs_err"] for r in timing["shuffle_gather"])),
-         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-         "library_ms": s["library_ms"]},
-    ]}
+    launches = {k: sum(r["launches"].get(k, 0) for r in full.values()) for k in KERNELS}
+    summary = {"kernels": []}
+    for name, (source, tpu) in KERNELS.items():
+        rows = timing[name]
+        # the row of the largest call: most lanes (rss_gate: arithmetic last),
+        # or most bytes for the fused kernels
+        top = max(rows, key=lambda r: (r.get("bytes", 0), r["n"], r.get("boolean", False)))
+        summary["kernels"].append({
+            "name": name, "route": "cuda", "source": source, "replaces": tpu, "launches": launches[name],
+            "max_abs_err": max(errs[name], *(r["max_abs_err"] for r in rows)),
+            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top.get("library_ms"),
+        })
     total_s = time.perf_counter() - t_all
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-               "n": ROWS_PER_TABLE, "build_s": build_s, "total_s": total_s, "full": full,
+               "n": ROWS_PER_TABLE, "three_join_n": THREE_JOIN_ROWS, "build_s": build_s, "total_s": total_s, "full": full,
                "timing": timing, "profile": profiled, "summary": summary}
     print(f"total {total_s:.1f} s")
     if args.out:

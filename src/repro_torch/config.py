@@ -1,8 +1,11 @@
 """Execution knobs and device resolution.
 
-Only the join's valid-computation tile comes over from ``repro.config``.
-There is no kernel switch: the tensor's device decides (a CUDA tensor goes
-through the kernels, a CPU tensor through their plain versions).
+The join's valid-computation tile and the circuit-fusion switch come over
+from ``repro.config``. There is no kernel switch: the tensor's device
+decides (a CUDA tensor goes through the kernels, a CPU tensor through their
+plain versions). ``fuse_circuits`` picks between the fused circuit kernels
+(the default, as in the reference) and the gate-by-gate path; the two give
+bit-identical shares and ledgers.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ DEFAULT_JOIN_TILE = 1 << 16
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     join_tile: int = DEFAULT_JOIN_TILE  # product-grid rows per valid tile
+    fuse_circuits: bool = True  # single-launch fused circuit kernels
 
     def __post_init__(self):
         if self.join_tile < 1:

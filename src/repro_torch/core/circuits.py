@@ -1,12 +1,20 @@
-"""Boolean circuits over XOR-replicated shares, gate by gate.
+"""Boolean circuits over XOR-replicated shares (a port of ``repro.core.circuits``).
 
-The port of ``repro.core.circuits``'s gate-by-gate path: every interactive
-AND goes through :func:`.sharing.and_` (the ``rss_gate`` kernel on a CUDA
-tensor). The PRF folds (7, 11, 21, 22, 31, 32, 100+d, 200+d and d for the
-equality tree) and the ledger entries are the reference's, so shares and
-(rounds, bytes/party) are bit-identical to it. The fused single-launch
-kernels of the reference (``ks_prefix``, ``and_fold``, ``a2b_kernel``,
-``bit2a_kernel``) are not ported yet.
+Two execution paths, as in the reference. With fusion on
+(:func:`repro_torch.kernels.fusion_enabled`, ``RuntimeConfig.fuse_circuits``,
+the default) the gate loops go through the single-launch fused kernels:
+``and_fold`` for the equality AND tree, ``ks_prefix`` for every Kogge-Stone
+prefix (``lt``, ``lt_public``, ``ks_add``), ``a2b_kernel`` for the whole
+arithmetic -> boolean conversion and ``bit2a_kernel`` for the bit injection.
+With fusion off every interactive gate goes through :func:`.sharing.and_` /
+:func:`.sharing.mul` (the ``rss_gate`` kernel on a CUDA tensor), one launch
+per level. The fused wrappers draw each level's zero sharing from the same
+PRF fold (7, 11, 21, 22, 31, 32, 100+d, 200+d and d for the equality tree)
+and log the same ledger entries as the gate-by-gate path, so shares and
+(rounds, bytes/party) are bit-identical across the two paths and to the
+reference; only the launch count and the memory traffic change. The
+generate AND of ``lt`` and the gates of ``and_bit`` / ``or_bit`` stay
+``rss_gate`` launches on both paths.
 
 ==============  ========================  ==========================
 circuit         rounds                    AND-words / lane
@@ -16,6 +24,7 @@ lt / le         1 + log2 k        (6)     1 + 2 log2 k      (11)
 lt_public       log2 k            (5)     2 log2 k          (10)
 ks_add          1 + log2 k        (6)     1 + 2 log2 k      (11)
 bit2a           2                         2 (ring mults)
+b2a             2 (parallel bits)         2k
 a2b             2 ks_add          (12)    2 + 4 log2 k      (22)
 ==============  ========================  ==========================
 """
@@ -23,8 +32,12 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import fusion_enabled
+from ..kernels.a2b_fused import a2b_fused, bit2a_fused
+from ..kernels.ks_prefix import and_fold_fused, ks_levels_fused
 from .ledger import fused_scope
 from .prf import PRFSetup
+from .ring import s32
 from .sharing import AShare, BShare, and_, mul
 
 __all__ = [
@@ -37,6 +50,7 @@ __all__ = [
     "gt_public",
     "ks_add",
     "bit2a",
+    "b2a",
     "a2b",
     "and_bit",
     "or_bit",
@@ -56,7 +70,10 @@ def _and_pair(a1: BShare, b1: BShare, a2: BShare, b2: BShare, prf: PRFSetup):
 # -----------------------------------------------------------------------------
 
 def _and_reduce_bits(v: BShare, prf: PRFSetup, width: int) -> BShare:
-    """AND all ``width`` bits of each lane into the LSB (log2(width) rounds)."""
+    """AND all ``width`` bits of each lane into the LSB (log2(width) rounds):
+    one fused launch, or one AND per level."""
+    if fusion_enabled():
+        return and_fold_fused(v, prf, width).and_public(1)
     d = width // 2
     while d >= 1:
         v = and_(v, v >> d, prf.fold(d))
@@ -83,7 +100,9 @@ def eq_public(x: BShare, c, prf: PRFSetup, width: int | None = None) -> BShare:
 
 def _ks_levels(g: BShare, p: BShare, prf: PRFSetup, width: int, fold_base: int) -> BShare:
     """All Kogge-Stone levels of the (g, p) prefix recurrence; returns the
-    final g. One batched AND pair per level."""
+    final g. One fused launch, or one batched AND pair per level."""
+    if fusion_enabled():
+        return ks_levels_fused(g, p, prf, width, fold_base)
     d = 1
     while d < width:
         pg, pp = _and_pair(p, g << d, p, p << d, prf.fold(fold_base + d))
@@ -174,17 +193,39 @@ def bit2a(b: BShare, prf: PRFSetup) -> AShare:
     """Single-bit XOR sharing -> arithmetic sharing of {0,1}: XOR emulated
     twice as u ^ v = u + v - 2uv. Two ring multiplications, 2 rounds."""
     with fused_scope("bit2a", rounds=2):
+        if fusion_enabled():
+            return bit2a_fused(b, prf)
         bits = b.shares & 1
         a0, a1, a2 = (AShare(_trivial(bits[i], i)) for i in range(3))
         t = a0 + a1 - mul(a0, a1, prf.fold(21)).mul_public(2)
         return t + a2 - mul(t, a2, prf.fold(22)).mul_public(2)
 
 
+def b2a(x: BShare, prf: PRFSetup, width: int | None = None) -> AShare:
+    """Full-word boolean -> arithmetic via parallel per-bit injection: all
+    ``width`` bit2a instances run in the same 2 rounds (bit planes as a
+    trailing lane axis), and the weighted recombination is local."""
+    width = width or x.ring.bits
+    with fused_scope("b2a", rounds=2):
+        planes = BShare(torch.stack([(x.shares >> j) & 1 for j in range(width)], dim=-1))
+        bits_a = bit2a(planes, prf)
+        # 2^j as ring words (2^31 wraps to int32's minimum)
+        weights = torch.tensor(
+            [s32(1 << j) for j in range(width)], dtype=torch.int32, device=x.device
+        )
+        # products wrap in int32; the sum of width words cannot overflow int64
+        total = torch.sum(bits_a.shares * weights, dim=-1, dtype=torch.int64)
+        return AShare(total.to(torch.int32))
+
+
 def a2b(x: AShare, prf: PRFSetup, width: int | None = None) -> BShare:
     """Arithmetic -> boolean: boolean-share each arithmetic leg trivially,
-    then two Kogge-Stone additions (2 * (1 + log2 k) rounds)."""
+    then two Kogge-Stone additions (2 * (1 + log2 k) rounds). One fused
+    launch, or 2 * (1 + log2 k) gate launches."""
     width = width or x.ring.bits
     with fused_scope("a2b", rounds=2 * (1 + width.bit_length() - 1)):
+        if fusion_enabled():
+            return a2b_fused(x, prf, width)
         legs = [BShare(_trivial(x.shares[i], i)) for i in range(3)]
         s = ks_add(legs[0], legs[1], prf.fold(31), width)
         return ks_add(s, legs[2], prf.fold(32), width)

@@ -121,6 +121,10 @@ class AShare(_ShareBase):
     def mul_public(self, c) -> "AShare":
         return AShare(self.shares * _as_ring(c, self.device))
 
+    def sum(self, axis=0) -> "AShare":
+        """Local reduction (additions are free under additive sharing)."""
+        return AShare(torch.sum(self.shares, dim=axis + 1, dtype=torch.int64).to(torch.int32))
+
     def cumsum(self, axis=0) -> "AShare":
         return AShare(torch.cumsum(self.shares, dim=axis + 1).to(torch.int32))
 

@@ -83,12 +83,38 @@ def generate_healthlnk(
     return shared, plain
 
 
+def _theta_pids(d_pid, d_time, m_pid, m_time) -> np.ndarray:
+    """Patients with some (diagnosis, medication) pair of theirs where
+    d.time <= m.time: the earliest such diagnosis against the latest such
+    medication, per patient (vectorised; no pairwise loop)."""
+    if not len(d_pid) or not len(m_pid):
+        return np.zeros(0, dtype=np.int64)
+    size = int(max(d_pid.max(), m_pid.max())) + 1
+    first_d = np.full(size, np.iinfo(np.int64).max)
+    np.minimum.at(first_d, d_pid.astype(np.int64), d_time.astype(np.int64))
+    last_m = np.full(size, -1, dtype=np.int64)
+    np.maximum.at(last_m, m_pid.astype(np.int64), m_time.astype(np.int64))
+    return np.nonzero(first_d <= last_m)[0]
+
+
 def plaintext_oracle(query: str, plain: Dict[str, Dict[str, np.ndarray]]):
-    """Plaintext answer of a slice query (``dosage_study`` only)."""
+    """Plaintext answer of a port query: ``dosage_study`` (sorted pids),
+    ``aspirin_count`` and ``three_join`` (counts), with the semantics of
+    ``repro.data.healthlnk.plaintext_oracle``, vectorised with numpy."""
     d, m = plain["diagnoses"], plain["medications"]
     if query == "dosage_study":
         # patients with a circulatory diagnosis AND a 325 mg aspirin record
         dp = d["pid"][d["icd9"] == ICD9_CIRCULATORY]
         mp = m["pid"][(m["med"] == MED_ASPIRIN) & (m["dosage"] == DOSAGE_325MG)]
         return [int(p) for p in np.intersect1d(dp, mp)]
+    aspirin = m["med"] == MED_ASPIRIN
+    if query == "aspirin_count":
+        # COUNT(DISTINCT pid): a 414 diagnosis no later than an aspirin record
+        heart = d["icd9"] == ICD9_HEART_414
+        return int(len(_theta_pids(d["pid"][heart], d["time"][heart], m["pid"][aspirin], m["time"][aspirin])))
+    if query == "three_join":
+        # as aspirin_count on diag = heart disease, for patients in demographics
+        heart = d["diag"] == DIAG_HEART_DISEASE
+        pids = _theta_pids(d["pid"][heart], d["time"][heart], m["pid"][aspirin], m["time"][aspirin])
+        return int(np.isin(pids, plain["demographics"]["pid"].astype(np.int64)).sum())
     raise ValueError(query)

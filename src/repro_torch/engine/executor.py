@@ -5,8 +5,11 @@ static shapes; the only place a public size changes is a ``Resize`` node's
 reveal-and-trim. Each node runs under its own :class:`CommLedger` and the
 engine records a per-node report: wall seconds (on the card, after a
 ``torch.cuda.synchronize()``), the ledger's (rounds, bytes/party), and the
-input/output oblivious sizes. A port of ``repro.engine.executor``'s serial
-path: the jit cache, batched execution and tracing are not ported yet.
+input/output oblivious sizes. The engine's ``RuntimeConfig.fuse_circuits``
+holds for the whole execution (:func:`~repro_torch.kernels.override_fusion`),
+as the reference applies its config. A port of ``repro.engine.executor``'s
+serial path: the jit cache, batched execution and tracing are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from ..config import RuntimeConfig, resolve_device
 from ..core import threefry
 from ..core.ledger import CommLedger
 from ..core.prf import setup_prf
+from ..kernels import override_fusion
 from ..ops.table import SecretTable
 from ..plan.nodes import PlanNode
 from ..plan.registry import infer_schema, lookup
@@ -107,7 +111,8 @@ class Engine:
         infer_schema(plan, {name: list(t.cols) for name, t in self.tables.items()})
         report = ExecutionReport()
         self._last_resize_info = None
-        out = self._run(plan, report)
+        with override_fusion(self.config.fuse_circuits):
+            out = self._run(plan, report)
         return out, report
 
     def _block(self) -> None:

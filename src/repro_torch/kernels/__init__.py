@@ -1,22 +1,39 @@
 """Hand-written CUDA kernels for the engine's hot spots, with launch accounting.
 
-Two kernels carry the gate-by-gate query path:
-
 * ``rss_gate``       — the 1-round RSS multiplication / AND gate (every
-                       comparison circuit bottoms out here);
-* ``shuffle_gather`` — the row gather of each secure-shuffle hop.
+                       gate outside a fused circuit);
+* ``shuffle_gather`` — the row gather of each secure-shuffle hop;
+* ``ks_prefix``      — every Kogge-Stone level of a comparison or adder in
+                       one launch, and ``and_fold``, the equality AND tree;
+* ``a2b_fused``      — the whole arithmetic -> boolean conversion (two
+                       chained Kogge-Stone adders) in one launch, and
+                       ``bit2a_fused``, the bit injection's two dependent
+                       ring products.
 
 Each kernel is a CUDA C++ source in ``csrc/`` with a plain C entry point.
 :func:`library` builds them at first use — one ``nvcc`` per source for
 ``sm_90a``, all started together, linked into one shared library — from the
 checkout's sources alone into ``kernels/_build/`` (ignored by git), and loads
 it with ``ctypes``. Each wrapper (``rss_gate.gate``,
-``shuffle_gather.shuffle_gather``) launches its kernel for a CUDA tensor and
-runs its plain PyTorch version for a CPU tensor; it records one launch in
-:func:`launch_counts` where it launches its kernel, and nowhere else.
+``shuffle_gather.shuffle_gather``, ``ks_prefix.ks_prefix`` / ``and_fold``,
+``a2b_fused.a2b_kernel`` / ``bit2a_kernel``) launches its kernel for a CUDA
+tensor and runs its plain PyTorch version for a CPU tensor; it records one
+launch in :func:`launch_counts` where it launches its kernel, and nowhere
+else.
+
+Circuit fusion
+--------------
+The device is the kernel switch; :func:`fusion_enabled` picks the circuit
+path. On (``RuntimeConfig.fuse_circuits``, the default) the comparison,
+equality and conversion circuits go through the fused kernels, one launch a
+circuit; off, they run gate by gate through ``rss_gate``. Both paths draw
+the same randomness and log the same ledger entries, so their shares and
+costs are bit-identical. :func:`override_fusion` sets the path for the
+current thread; the engine applies its config with it for one execution.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -24,15 +41,23 @@ import subprocess
 import threading
 from collections import Counter
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterator, Optional
+
+import torch
+
+from ..config import RuntimeConfig
 
 __all__ = [
+    "fusion_enabled",
+    "override_fusion",
     "record_launch",
     "launch_counts",
     "reset_launch_counts",
     "library",
     "build",
     "check_launch",
+    "check_lanes",
+    "c_shifts",
 ]
 
 _CSRC = Path(__file__).parent / "csrc"
@@ -43,6 +68,24 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 _LAUNCHES: Counter = Counter()
 _LOCK = threading.Lock()
 _LIB = None
+_STATE = threading.local()
+
+
+def fusion_enabled() -> bool:
+    """True when circuits route through the single-launch fused kernels."""
+    ov = getattr(_STATE, "fusion", None)
+    return RuntimeConfig.fuse_circuits if ov is None else ov
+
+
+@contextlib.contextmanager
+def override_fusion(enabled: Optional[bool]) -> Iterator[None]:
+    """Thread-locally force circuit fusion on/off (None = the default)."""
+    prev = getattr(_STATE, "fusion", None)
+    _STATE.fusion = enabled
+    try:
+        yield
+    finally:
+        _STATE.fusion = prev
 
 
 def record_launch(kind: str) -> None:
@@ -126,6 +169,18 @@ def library() -> ctypes.CDLL:
             lib.rss_gate_launch.restype = i32
             lib.shuffle_gather_launch.argtypes = [vp, vp, vp, i32, i64, i64, vp]
             lib.shuffle_gather_launch.restype = i32
+            # (g, p, alpha, out, n, shifts, n_shifts, stream)
+            lib.ks_prefix_launch.argtypes = [vp, vp, vp, vp, i64, vp, i32, vp]
+            lib.ks_prefix_launch.restype = i32
+            # (v, alpha, out, n, shifts, n_shifts, stream)
+            lib.and_fold_launch.argtypes = [vp, vp, vp, i64, vp, i32, vp]
+            lib.and_fold_launch.restype = i32
+            # (x, alpha, out, n, shifts, n_shifts, stream)
+            lib.a2b_launch.argtypes = [vp, vp, vp, i64, vp, i32, vp]
+            lib.a2b_launch.restype = i32
+            # (b, alpha, out, n, stream)
+            lib.bit2a_launch.argtypes = [vp, vp, vp, i64, vp]
+            lib.bit2a_launch.restype = i32
             lib.kernel_error_string.argtypes = [i32]
             lib.kernel_error_string.restype = ctypes.c_char_p
             _LIB = lib
@@ -137,3 +192,34 @@ def check_launch(name: str, err: int) -> None:
     if err != 0:
         msg = library().kernel_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def check_lanes(name: str, planes, alpha, words: int) -> None:
+    """Raise unless every tensor of ``planes`` is a ``(3, N)`` int32 share
+    triple and ``alpha`` a ``(3, words, N)`` int32 zero sharing, all of one
+    N and on one device (the fused kernels' operands)."""
+    n = planes[0].shape[-1] if planes[0].dim() == 2 else -1
+    if any(p.dim() != 2 or p.shape[0] != 3 or p.shape[1] != n for p in planes) or tuple(
+        alpha.shape
+    ) != (3, words, n):
+        raise ValueError(
+            f"{name} needs (3, N) operands and a (3, {words}, N) alpha, got "
+            f"{[tuple(p.shape) for p in planes]} and {tuple(alpha.shape)}"
+        )
+    if any(t.dtype != torch.int32 for t in (*planes, alpha)):
+        raise TypeError(f"{name} needs int32 ring words, got {[t.dtype for t in (*planes, alpha)]}")
+    if any(t.device != alpha.device for t in planes):
+        raise ValueError(f"{name} operands lie on different devices")
+    if alpha.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {alpha.device}")
+    if alpha.device.type == "cuda" and not all(t.is_contiguous() for t in (*planes, alpha)):
+        raise ValueError(f"{name} needs contiguous operands")
+
+
+def c_shifts(shifts) -> "ctypes.Array":
+    """A level shift list as the C int array the fused kernels take (at most
+    8 levels, each shift in [0, 31])."""
+    shifts = tuple(int(d) for d in shifts)
+    if len(shifts) > 8 or any(not 0 <= d < 32 for d in shifts):
+        raise ValueError(f"shift lists take at most 8 shifts in [0, 31], got {shifts}")
+    return (ctypes.c_int * max(len(shifts), 1))(*shifts)

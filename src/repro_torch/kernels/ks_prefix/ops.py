@@ -1,0 +1,169 @@
+"""ks_prefix / and_fold: a whole Kogge-Stone prefix, and the equality AND
+tree, in one launch each (CUDA kernels, plain versions, protocol wrappers).
+
+Replace the Pallas TPU kernels ``repro/kernels/ks_prefix/ks_prefix.py:83``
+(``ks_prefix``) and ``:111`` (``and_fold``); wrappers ``ops.py:42`` /
+``:78``, oracles ``ref.py``. The CUDA source is ``kernels/csrc/ks_prefix.cu``
+(with the level loop in ``ks_levels.cuh``), which notes its byte bound and
+design.
+
+:func:`ks_levels_fused` and :func:`and_fold_fused` are what
+``core/circuits.py`` calls when fusion is on. They own what the raw kernels
+do not, as the reference's wrappers do:
+
+* randomness parity — each level's zero sharing comes from the same PRF fold
+  as on the gate-by-gate path (``prf.fold(fold_base + d)`` at ``(2,) +
+  lane_shape`` for the two ANDs of a Kogge-Stone level, ``prf.fold(d)`` for
+  a fold level), so both paths give the same shares;
+* ledger parity — each level logs the ``("and", 1 round, bytes)`` entry the
+  gate-by-gate ``and_`` would have logged;
+* shape plumbing — lanes of any shape are flattened in order (``reshape(3,
+  -1)``), with no padding: the kernel masks its own tail.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .. import c_shifts, check_lanes, check_launch, library, record_launch
+from ...core.ledger import log_comm
+from ...core.prf import PRFSetup, zero_share_xor
+from ...core.ring import srl
+from ...core.sharing import BShare
+from ..rss_gate import gate_plain
+
+__all__ = [
+    "ks_shifts",
+    "fold_shifts",
+    "ks_prefix_plain",
+    "and_fold_plain",
+    "ks_prefix",
+    "and_fold",
+    "ks_levels_fused",
+    "and_fold_fused",
+]
+
+
+def ks_shifts(width: int) -> Tuple[int, ...]:
+    """Doubling shifts of the Kogge-Stone loop (d = 1, 2, ... < width), as
+    ``circuits._ks_levels`` runs them, also for widths that are not a power
+    of two (18 -> 1, 2, 4, 8, 16)."""
+    shifts = []
+    d = 1
+    while d < width:
+        shifts.append(d)
+        d *= 2
+    return tuple(shifts)
+
+
+def fold_shifts(width: int) -> Tuple[int, ...]:
+    """Halving shifts of the equality AND tree (d = width // 2, ..., 1), as
+    ``circuits._and_reduce_bits`` runs them (18 -> 9, 4, 2, 1)."""
+    shifts = []
+    d = width // 2
+    while d >= 1:
+        shifts.append(d)
+        d //= 2
+    return tuple(shifts)
+
+
+def ks_prefix_plain(g: torch.Tensor, p: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Tensor:
+    """All Kogge-Stone levels in plain PyTorch; ``g``, ``p``: (3, N),
+    ``alphas``: (3, 2L, N). Returns the final ``g``."""
+    for lvl, d in enumerate(shifts):
+        pg = gate_plain(p, g << d, alphas[:, 2 * lvl], True)
+        pp = gate_plain(p, p << d, alphas[:, 2 * lvl + 1], True)
+        g = g ^ pg
+        p = pp
+    return g
+
+
+def and_fold_plain(v: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Tensor:
+    """The equality AND tree in plain PyTorch; ``v``: (3, N), ``alphas``:
+    (3, L, N). ``>>`` is the ring's logical shift. The conjunction lands in
+    the LSB; the caller masks it."""
+    for lvl, d in enumerate(shifts):
+        v = gate_plain(v, srl(v, d), alphas[:, lvl], True)
+    return v
+
+
+def ks_prefix(g: torch.Tensor, p: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Tensor:
+    """Every Kogge-Stone level in one launch.
+
+    ``g``, ``p``: (3, N) int32; ``alphas``: (3, 2 * len(shifts), N) int32;
+    ``shifts``: at most 8 shifts in [0, 31]. A CUDA tensor launches the
+    kernel (N = 0 takes the plain path and launches nothing), a CPU tensor
+    runs :func:`ks_prefix_plain`; any other device, dtype, shape or layout
+    raises.
+    """
+    cs = c_shifts(shifts)
+    check_lanes("ks_prefix", [g, p], alphas, 2 * len(shifts))
+    n = g.shape[1]
+    if g.device.type == "cpu" or n == 0:
+        return ks_prefix_plain(g, p, alphas, shifts)
+    out = torch.empty_like(g)
+    err = library().ks_prefix_launch(
+        g.data_ptr(), p.data_ptr(), alphas.data_ptr(), out.data_ptr(), n, cs, len(shifts),
+        torch.cuda.current_stream(g.device).cuda_stream,
+    )
+    check_launch("ks_prefix", err)
+    record_launch("ks_prefix")
+    return out
+
+
+def and_fold(v: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Tensor:
+    """The equality AND tree in one launch.
+
+    ``v``: (3, N) int32; ``alphas``: (3, len(shifts), N) int32. Devices,
+    checks and N = 0 as :func:`ks_prefix`; a CPU tensor runs
+    :func:`and_fold_plain`.
+    """
+    cs = c_shifts(shifts)
+    check_lanes("and_fold", [v], alphas, len(shifts))
+    n = v.shape[1]
+    if v.device.type == "cpu" or n == 0:
+        return and_fold_plain(v, alphas, shifts)
+    out = torch.empty_like(v)
+    err = library().and_fold_launch(
+        v.data_ptr(), alphas.data_ptr(), out.data_ptr(), n, cs, len(shifts),
+        torch.cuda.current_stream(v.device).cuda_stream,
+    )
+    check_launch("and_fold", err)
+    record_launch("and_fold")
+    return out
+
+
+def _lanes(x: BShare) -> torch.Tensor:
+    return x.shares.reshape(3, -1).contiguous()
+
+
+def ks_levels_fused(g: BShare, p: BShare, prf: PRFSetup, width: int, fold_base: int) -> BShare:
+    """All Kogge-Stone levels of ``circuits._ks_levels`` in one launch."""
+    shape, lanes, device = g.shape, g.size, g.device
+    shifts = ks_shifts(width)
+    # one (2, *shape) XOR zero sharing per level, as the gate-by-gate
+    # _and_pair draws it: word 2l for the pg gate, 2l + 1 for pp
+    alphas = torch.empty((3, 2 * len(shifts), lanes), dtype=torch.int32, device=device)
+    for lvl, d in enumerate(shifts):
+        alphas[:, 2 * lvl:2 * lvl + 2] = zero_share_xor(
+            prf.fold(fold_base + d), (2,) + shape, device
+        ).reshape(3, 2, -1)
+    out = ks_prefix(_lanes(g), _lanes(p), alphas, shifts)
+    for _ in shifts:
+        log_comm("and", 1, 2 * lanes * g.ring.bytes)
+    return BShare(out.reshape((3,) + shape))
+
+
+def and_fold_fused(v: BShare, prf: PRFSetup, width: int) -> BShare:
+    """The equality AND tree of ``circuits._and_reduce_bits`` in one launch
+    (the caller still masks the LSB)."""
+    shape, lanes, device = v.shape, v.size, v.device
+    shifts = fold_shifts(width)
+    alphas = torch.empty((3, len(shifts), lanes), dtype=torch.int32, device=device)
+    for lvl, d in enumerate(shifts):
+        alphas[:, lvl] = zero_share_xor(prf.fold(d), shape, device).reshape(3, -1)
+    out = and_fold(_lanes(v), alphas, shifts)
+    for _ in shifts:
+        log_comm("and", 1, lanes * v.ring.bytes)
+    return BShare(out.reshape((3,) + shape))

@@ -1,4 +1,5 @@
-"""Plan nodes of the slice: Scan, Filter, Join, Resize, Distinct.
+"""Plan nodes of the port: Scan, Filter, Join, Resize, Distinct, CountValid,
+CountDistinct.
 
 A plan is a tree of dataclass nodes with ``Scan`` leaves over named base
 tables; each node type is registered in :mod:`.registry`. ``describe()``
@@ -13,7 +14,7 @@ from typing import List, Optional, Tuple
 from ..core.resizer import ResizerConfig
 from ..ops.filter import Pred, normalize_pred, render_pred
 
-__all__ = ["PlanNode", "Scan", "Filter", "Join", "Distinct", "Resize"]
+__all__ = ["PlanNode", "Scan", "Filter", "Join", "Distinct", "Resize", "CountValid", "CountDistinct"]
 
 
 @dataclasses.dataclass
@@ -82,6 +83,27 @@ class Distinct(PlanNode):
 
     def describe(self) -> str:
         return f"Distinct({self.col})"
+
+
+@dataclasses.dataclass
+class CountValid(PlanNode):
+    """COUNT(*) over true rows -> 1-row table with an arithmetic ``cnt``."""
+
+    child: PlanNode
+
+    def describe(self) -> str:
+        return "Count(*)"
+
+
+@dataclasses.dataclass
+class CountDistinct(PlanNode):
+    """COUNT(DISTINCT col) -> 1-row table with an arithmetic ``cnt``."""
+
+    child: PlanNode
+    col: str
+
+    def describe(self) -> str:
+        return f"CountDistinct({self.col})"
 
 
 @dataclasses.dataclass

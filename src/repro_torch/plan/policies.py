@@ -21,18 +21,22 @@ def insert_resizers(
       * ``none``          — fully oblivious (no resizers)
       * ``all_internal``  — after every non-root operator whose registry hint
                             is ``internal`` (Filter / Join: the paper's setup)
+      * ``after_joins``   — only after the ``internal`` operators that balloon
+                            (Join, the product)
 
-    (The reference's ``after_joins`` and ``cost_based`` placements are not
-    ported yet.)
+    (The reference's ``cost_based`` placement is not ported yet.)
     """
-    if placement not in ("none", "all_internal"):
+    if placement not in ("none", "all_internal", "after_joins"):
         raise ValueError(f"unsupported placement {placement!r}")
     if placement == "none":
         return plan
 
     def rewrite(node: PlanNode, is_root: bool) -> PlanNode:
         node = node.replace_children([rewrite(c, False) for c in node.children()])
-        if is_root or lookup(type(node)).resizer != "internal":
+        d = lookup(type(node))
+        if is_root or d.resizer != "internal":
+            return node
+        if placement == "after_joins" and not d.balloons:
             return node
         cfg = cfg_factory(node)
         return node if cfg is None else Resize(node, cfg)

@@ -1,4 +1,4 @@
-"""Operator registry for the slice's plan nodes.
+"""Operator registry for the port's plan nodes.
 
 Each node type registers one :class:`OperatorDef`: its output schema (the
 compile-time column check that runs before any MPC work), how the engine
@@ -15,20 +15,25 @@ from typing import Callable, Dict, List, Type
 from ..core import threefry
 from ..core.resizer import Resizer
 from ..errors import PlanSchemaError
+from ..ops.aggregate import count_distinct, count_valid
 from ..ops.distinct import oblivious_distinct
 from ..ops.filter import oblivious_filter, pred_leaves
 from ..ops.join import _disambiguate, oblivious_join
-from .nodes import Distinct, Filter, Join, PlanNode, Resize, Scan
+from .nodes import CountDistinct, CountValid, Distinct, Filter, Join, PlanNode, Resize, Scan
 
 __all__ = ["OperatorDef", "PlanSchema", "register", "lookup", "infer_schema"]
 
 
 @dataclasses.dataclass
 class PlanSchema:
-    """Ordered output column names of one plan node (every column of the
-    slice is an XOR-shared word)."""
+    """Ordered output columns of one plan node: name -> share kind, ``"b"``
+    for an XOR-shared word, ``"a"`` for an arithmetic share (a count)."""
 
-    names: List[str]
+    cols: Dict[str, str]
+
+    @property
+    def names(self) -> List[str]:
+        return list(self.cols)
 
     def require(self, col: str, node: PlanNode) -> None:
         if col not in self.names:
@@ -56,6 +61,7 @@ class OperatorDef:
     schema: Callable[[PlanNode, List[PlanSchema], Dict[str, List[str]]], PlanSchema]
     apply: Callable  # (engine, node, children) -> SecretTable
     resizer: str = "skip"  # internal | skip
+    balloons: bool = False  # output is larger than inputs (join product)
     provides_resize_info: bool = False
 
 
@@ -88,7 +94,7 @@ def _scan_schema(node: Scan, children, catalog) -> PlanSchema:
             table=node.table,
             available=sorted(catalog),
         )
-    return PlanSchema(list(catalog[node.table]))
+    return PlanSchema(dict.fromkeys(catalog[node.table], "b"))
 
 
 register(OperatorDef(
@@ -121,10 +127,10 @@ def _join_schema(node: Join, children, catalog) -> PlanSchema:
     if node.theta is not None:
         left.require(node.theta[0], node)
         right.require(node.theta[2], node)
-    merged = dict.fromkeys(left.names)
-    for name in right.names:
-        merged[_disambiguate(merged, name)] = None
-    return PlanSchema(list(merged))
+    merged = dict(left.cols)
+    for name, kind in right.cols.items():
+        merged[_disambiguate(merged, name)] = kind
+    return PlanSchema(merged)
 
 
 register(OperatorDef(
@@ -135,6 +141,7 @@ register(OperatorDef(
         tile=eng.config.join_tile,
     ),
     resizer="internal",
+    balloons=True,
 ))
 
 
@@ -147,6 +154,25 @@ register(OperatorDef(
     node_type=Distinct,
     schema=_distinct_schema,
     apply=lambda eng, node, children: oblivious_distinct(children[0], node.col, eng.prf),
+))
+
+
+def _count_distinct_schema(node: CountDistinct, children, catalog) -> PlanSchema:
+    children[0].require(node.col, node)
+    return PlanSchema({"cnt": "a"})
+
+
+register(OperatorDef(
+    node_type=CountValid,
+    schema=lambda node, children, catalog: PlanSchema({"cnt": "a"}),
+    apply=lambda eng, node, children: count_valid(children[0], eng.prf),
+))
+
+
+register(OperatorDef(
+    node_type=CountDistinct,
+    schema=_count_distinct_schema,
+    apply=lambda eng, node, children: count_distinct(children[0], node.col, eng.prf),
 ))
 
 

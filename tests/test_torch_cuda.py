@@ -11,6 +11,15 @@ import pytest
 import torch
 
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.a2b_fused import a2b_kernel, a2b_plain, bit2a_kernel, bit2a_plain
+from repro_torch.kernels.ks_prefix import (
+    and_fold,
+    and_fold_plain,
+    fold_shifts,
+    ks_prefix,
+    ks_prefix_plain,
+    ks_shifts,
+)
 from repro_torch.kernels.rss_gate import gate, gate_plain
 from repro_torch.kernels.shuffle_gather import shuffle_gather, shuffle_gather_plain
 
@@ -85,3 +94,89 @@ def test_wrappers_raise_on_bad_input(cuda):
         gate(x.t().contiguous().t(), x, x, True)
     with pytest.raises(TypeError):
         shuffle_gather(x.view(3, 8, 1), torch.arange(8, device=cuda, dtype=torch.int32))
+
+
+# fused kernels: N = 0 takes the plain path and launches nothing; 1 and 4097
+# (ragged) take the scalar path, 4096 the 16-byte path
+FUSED_LANES = [0, 1, 4096, 4097]
+
+
+@pytest.mark.parametrize("width", [32, 18, 16])
+@pytest.mark.parametrize("n", FUSED_LANES)
+def test_ks_prefix_kernel_equals_plain(cuda, n, width):
+    rng = np.random.default_rng(n + width)
+    shifts = ks_shifts(width)
+    g, p = _words(rng, (3, n), cuda), _words(rng, (3, n), cuda)
+    al = _words(rng, (3, 2 * len(shifts), n), cuda)
+    reset_launch_counts()
+    got = ks_prefix(g, p, al, shifts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ks_prefix_plain(g, p, al, shifts))
+    assert launch_counts().get("ks_prefix", 0) == (1 if n else 0)
+
+
+@pytest.mark.parametrize("width", [32, 18])
+@pytest.mark.parametrize("n", FUSED_LANES)
+def test_and_fold_kernel_equals_plain(cuda, n, width):
+    rng = np.random.default_rng(n + 7 * width)
+    shifts = fold_shifts(width)
+    v = _words(rng, (3, n), cuda)
+    al = _words(rng, (3, len(shifts), n), cuda)
+    reset_launch_counts()
+    got = and_fold(v, al, shifts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, and_fold_plain(v, al, shifts))
+    assert launch_counts().get("and_fold", 0) == (1 if n else 0)
+
+
+@pytest.mark.parametrize("width", [32, 18, 16])
+@pytest.mark.parametrize("n", FUSED_LANES)
+def test_a2b_kernel_equals_plain(cuda, n, width):
+    rng = np.random.default_rng(n + 11 * width)
+    shifts = ks_shifts(width)
+    x = _words(rng, (3, n), cuda)
+    al = _words(rng, (3, 2 * (1 + 2 * len(shifts)), n), cuda)
+    reset_launch_counts()
+    got = a2b_kernel(x, al, shifts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, a2b_plain(x, al, shifts))
+    assert launch_counts().get("a2b_fused", 0) == (1 if n else 0)
+
+
+@pytest.mark.parametrize("n", FUSED_LANES)
+def test_bit2a_kernel_equals_plain(cuda, n):
+    rng = np.random.default_rng(n + 3)
+    b = _words(rng, (3, n), cuda)
+    al = _words(rng, (3, 2, n), cuda)
+    reset_launch_counts()
+    got = bit2a_kernel(b, al)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bit2a_plain(b, al))
+    assert launch_counts().get("bit2a_fused", 0) == (1 if n else 0)
+
+
+def test_fused_kernels_unaligned_planes(cuda):
+    # views one word into their storage: the kernels must take the scalar path
+    rng = np.random.default_rng(5)
+    n = 1024
+    shifts = ks_shifts(32)
+    x = _words(rng, (3 * n + 1,), cuda)[1:].view(3, n)
+    y = _words(rng, (3, n), cuda)
+    al = _words(rng, (3 * 10 * n + 1,), cuda)[1:].view(3, 10, n)
+    assert torch.equal(ks_prefix(x, y, al, shifts), ks_prefix_plain(x, y, al, shifts))
+    al = _words(rng, (3 * 22 * n + 1,), cuda)[1:].view(3, 22, n)
+    assert torch.equal(a2b_kernel(x, al, shifts), a2b_plain(x, al, shifts))
+    al = _words(rng, (3 * 2 * n + 1,), cuda)[1:].view(3, 2, n)
+    assert torch.equal(bit2a_kernel(x, al), bit2a_plain(x, al))
+    al = _words(rng, (3 * 5 * n + 1,), cuda)[1:].view(3, 5, n)
+    assert torch.equal(and_fold(x, al, fold_shifts(32)), and_fold_plain(x, al, fold_shifts(32)))
+
+
+def test_fused_wrappers_raise_on_bad_input(cuda):
+    x = torch.zeros((3, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # non-contiguous operand
+        ks_prefix(x.t().contiguous().t(), x, torch.zeros((3, 2, 8), dtype=torch.int32, device=cuda), (1,))
+    with pytest.raises(ValueError):  # operands on two devices
+        bit2a_kernel(x, torch.zeros((3, 2, 8), dtype=torch.int32))
+    with pytest.raises(TypeError):
+        and_fold(x.long(), torch.zeros((3, 1, 8), dtype=torch.int64, device=cuda), (1,))

@@ -8,28 +8,36 @@ Run from the repository root, with no arguments:
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 runs these phases; each one fails the run (non-zero exit) on any mismatch:
 
-1. kernels: ``rss_gate`` (both modes), ``shuffle_gather`` and the fused
+1. kernels: ``rss_gate`` (both modes), ``shuffle_gather``, the fused
    circuit kernels ``ks_prefix``, ``and_fold``, ``a2b_fused`` and
-   ``bit2a_fused`` against their plain PyTorch versions on the card, bit for
-   bit, at the listed shapes (the gather well above the TPU kernel's 8 MiB
-   VMEM limit; the fused kernels at ragged lane counts, on unaligned planes,
-   at the widths the path uses, and ``bit2a`` on a 2-D lane shape);
-2. cross-device: the quickstart plan (n=48) on the default fused path on
-   ``cuda`` and on ``cpu`` gives identical output shares, per-node (rounds,
-   bytes/party) and Resize sizes S, and on ``cuda`` the gate-by-gate path
+   ``bit2a_fused``, and the sort's stage select ``bitonic_swap`` against
+   their plain PyTorch versions on the card, bit for bit, at the listed
+   shapes (the gather well above the TPU kernel's 8 MiB VMEM limit; the
+   fused kernels and ``bitonic_swap`` at ragged lane counts and on unaligned
+   planes, the fused kernels at the widths the path uses, and ``bit2a`` on a
+   2-D lane shape);
+2. cross-device: the quickstart plan, ``comorbidity`` and
+   ``diag_breakdown`` (n=48) on the default fused path on ``cuda`` and on
+   ``cpu`` give identical output shares, per-node (rounds, bytes/party) and
+   Resize sizes S, and on ``cuda`` the gate-by-gate path
    (``fuse_circuits=False``) gives the same again;
 3. full size over ``generate_healthlnk(n)`` with Beta(2,6) Resizers on every
    internal operator: ``aspirin_count`` (theta join, COUNT(DISTINCT)) on the
-   fused path, ``dosage_study`` on the fused and on the gate-by-gate path
-   (identical shares, ledgers and S), the quickstart plan, and
-   ``three_join`` at a reduced n (its later product joins grow as n^3 and
-   n^4). Launch counts are reset before each run and read after it; every
-   kernel of that run's path must have launched, and rows or counts must
-   equal the plaintext oracle. Per-node seconds, S and launch counts are
-   printed;
+   fused path, ``dosage_study`` and ``comorbidity`` (GroupBy, then ORDER BY
+   DESC LIMIT 10) on the fused and on the gate-by-gate path (identical
+   shares, ledgers and S), the quickstart plan, the ten dialect goldens
+   (Project, SUM, AVG, MIN, MAX, OR, composite-key GroupBy, GroupBy SUM and
+   AVG, HAVING), ``three_join`` at a reduced n (its later product joins grow
+   as n^3 and n^4), and ``comorbidity`` once more over a 1,048,576-row
+   diagnoses table. Launch counts are reset before each run and read after
+   it; every kernel of that run's path must have launched, and every answer
+   must equal the plaintext oracle. Per-node seconds, S, peak memory and
+   launch counts are printed;
 4. timing: each kernel's median time at the shapes the full-size run gave
    it, beside its plain version, the one-call library equivalent (where one
-   exists) and the least time the card could take (``bound_ms``);
+   exists) and the least time the card could take (``bound_ms``); for
+   ``bitonic_swap`` also the gate-by-gate route it replaces at the same
+   shape;
 5. with ``--profile`` only: a ``torch.profiler`` breakdown of device time
    by kernel for one stage of the full-size Distinct's sort (2^23 rows) on
    the fused and on the gate-by-gate path, and one join tile.
@@ -63,6 +71,8 @@ ROWS_PER_TABLE = 8192
 # three_join's rows per table: its second and third product joins hold about
 # S1 * n/4 and S2 * n/4 rows (S: the Resize sizes), which grow as n^3 and n^4
 THREE_JOIN_ROWS = 512
+# comorbidity's second run: a one-million-row diagnoses table
+BIG_ROWS = 1 << 20
 # the >8 MiB gather of the kernel phase: the product join's size as planned
 GATHER_ROWS = 7_900_000
 # timed calls in a row per kernel measurement
@@ -77,9 +87,48 @@ KERNELS = {
     "and_fold": (CSRC + "ks_prefix.cu", "src/repro/kernels/ks_prefix/ks_prefix.py:111"),
     "a2b_fused": (CSRC + "a2b_fused.cu", "src/repro/kernels/a2b_fused/a2b_fused.py:78"),
     "bit2a_fused": (CSRC + "a2b_fused.cu", "src/repro/kernels/a2b_fused/a2b_fused.py:101"),
+    "bitonic_swap": (CSRC + "bitonic_swap.cu", "src/repro/kernels/bitonic_stage/bitonic_stage.py:41"),
 }
 GATE_KERNELS = ("rss_gate", "shuffle_gather")  # the gate-by-gate path's
-FUSED_KERNELS = ("ks_prefix", "and_fold", "a2b_fused")  # + bit2a_fused under a COUNT
+FUSED_KERNELS = ("ks_prefix", "and_fold", "a2b_fused", "bit2a_fused", "bitonic_swap")
+# the kernels each golden's fused path launches with Resizers on every
+# internal operator: every plan filters, joins, resizes or sorts through
+# rss_gate, ks_prefix and and_fold; a Resize adds shuffle_gather and
+# a2b_fused; COUNT, SUM, AVG and GroupBy add bit2a_fused; a sort adds
+# bitonic_swap (diag_breakdown's sort has no payload to narrow and no Resize,
+# so it shuffles nothing; the other GroupBys at the root convert no a2b)
+_BASE = ("rss_gate", "ks_prefix", "and_fold")
+_RESIZED = _BASE + ("shuffle_gather", "a2b_fused")
+PATH_KERNELS = {
+    "comorbidity": _RESIZED + ("bit2a_fused", "bitonic_swap"),
+    "dosage_study": _RESIZED + ("bitonic_swap",),
+    "aspirin_count": _RESIZED + ("bit2a_fused", "bitonic_swap"),
+    "three_join": _RESIZED + ("bit2a_fused", "bitonic_swap"),
+    "projection_join": _RESIZED,
+    "dosage_sum": _RESIZED + ("bit2a_fused",),
+    "dosage_avg": _RESIZED + ("bit2a_fused",),
+    "dosage_min": _RESIZED + ("bitonic_swap",),
+    "dosage_max": _RESIZED + ("bitonic_swap",),
+    "heart_or_circulatory": _RESIZED + ("bit2a_fused",),
+    "diag_breakdown": _BASE + ("bit2a_fused", "bitonic_swap"),
+    "med_dosage_sum": _BASE + ("shuffle_gather", "bit2a_fused", "bitonic_swap"),
+    "med_dosage_avg": _BASE + ("shuffle_gather", "bit2a_fused", "bitonic_swap"),
+    "repeat_diagnoses": _RESIZED + ("bit2a_fused", "bitonic_swap"),
+}
+# the goldens the full-size phase runs beyond the earlier slices' four
+NEW_GOLDENS = ("comorbidity", "projection_join", "dosage_sum", "dosage_avg", "dosage_min", "dosage_max",
+               "heart_or_circulatory", "diag_breakdown", "med_dosage_sum", "med_dosage_avg", "repeat_diagnoses")
+
+
+def check_launches(label: str, launches: dict, query: str, fused: bool) -> None:
+    """Every kernel of the run's path launched; the gate-by-gate path
+    launched none of the fused kernels."""
+    need = [k for k in PATH_KERNELS[query] if fused or k in GATE_KERNELS]
+    missing = [k for k in need if not launches.get(k, 0)]
+    check(not missing, f"{label}: {missing} never launched (launches {launches})")
+    if not fused:
+        check(not any(launches.get(k, 0) for k in FUSED_KERNELS),
+              f"{label}: the gate-by-gate path launched a fused kernel ({launches})")
 
 
 class SmokeFailure(RuntimeError):
@@ -190,6 +239,7 @@ def kernel_phase(dev) -> dict:
     print(f"  shuffle_gather (N, C)=(257, 3), 3 indices out of range  max_abs_err={err}")
     check(err == 0 and not got[:, [0, 128, 256]].any(), "shuffle_gather: out-of-range rows differ")
     fused_kernel_checks(dev, rng, errs)
+    bitonic_kernel_checks(dev, rng, errs)
     reset_launch_counts()
     return errs
 
@@ -272,6 +322,32 @@ def fused_kernel_checks(dev, rng, errs: dict) -> None:
     check(err == 0, "b2a on the card differs from its plain version on the CPU")
 
 
+def bitonic_kernel_checks(dev, rng, errs: dict) -> None:
+    """``bitonic_swap`` against its plain version, bit for bit: ragged and
+    aligned lane counts, C = 1, 3 and 9 columns, aligned and unaligned
+    planes."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.bitonic_stage import stage_swap, stage_swap_plain
+
+    for n in (1, 257, 4099, 1 << 20):
+        for c in (1, 3, 9):
+            for aligned in (True, False):
+                mask = operand(rng, (3, n), dev, aligned)
+                own, other, alpha = (operand(rng, (3, c, n), dev, aligned) for _ in range(3))
+                reset_launch_counts()
+                got = stage_swap(mask, own, other, alpha)
+                torch.cuda.synchronize()
+                label = f"N={n} C={c}" + ("" if aligned else " unaligned")
+                check(launch_counts().get("bitonic_swap", 0) == 1, f"bitonic_swap {label} did not launch")
+                err = max_abs_err(got, stage_swap_plain(mask, own, other, alpha))
+                check(err == 0, f"bitonic_swap {label} differs from its plain version")
+                errs["bitonic_swap"] = max(errs["bitonic_swap"], err)
+                del mask, own, other, alpha, got
+        print(f"  bitonic_swap N={n:>7}, C = 1/3/9, aligned and unaligned planes  max_abs_err=0")
+
+
 # ---------------------------------------------------------------------------
 # plans
 # ---------------------------------------------------------------------------
@@ -340,14 +416,39 @@ def ledger_rows(report) -> list:
     return [(s.node, s.rounds, s.bytes_per_party, s.n_out, s.extra.get("s")) for s in report.nodes]
 
 
-def cross_device_phase(dev) -> None:
-    import numpy as np
+def three_ways(dev, label: str, make_tables, plan, key: int, query: str):
+    """One plan fused on ``cuda``, fused on ``cpu`` and gate by gate on
+    ``cuda``: identical shares, per-node ledgers and S, and the launches of
+    each path. Returns the cuda fused run's (output, report)."""
     import torch
 
     from repro_torch import RuntimeConfig
     from repro_torch.core import threefry
     from repro_torch.engine import Engine
     from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    runs = {}
+    for name, d, fuse in (("cuda", dev, True), ("cpu", torch.device("cpu"), True), ("cuda gates", dev, False)):
+        engine = Engine(make_tables(d), key=threefry.PRNGKey(key), config=RuntimeConfig(fuse_circuits=fuse), device=d)
+        reset_launch_counts()
+        runs[name] = engine.execute(plan)
+        if d.type == "cuda":  # a CPU tensor runs the plain versions and launches nothing
+            torch.cuda.synchronize()
+            check_launches(f"{label} {name}", launch_counts(), query, fuse)
+    reset_launch_counts()
+    (gout, grep), (cout, crep), (uout, urep) = runs["cuda"], runs["cpu"], runs["cuda gates"]
+    check(ledger_rows(grep) == ledger_rows(crep), f"{label}: per-node ledgers or Resize sizes differ between cuda and cpu")
+    check(same_outputs(gout, cout), f"{label}: output shares differ between cuda and cpu")
+    check(ledger_rows(grep) == ledger_rows(urep), f"{label}: fused and gate-by-gate ledgers or sizes differ on cuda")
+    check(same_outputs(gout, uout), f"{label}: fused and gate-by-gate output shares differ on cuda")
+    return gout, grep
+
+
+def cross_device_phase(dev) -> None:
+    import numpy as np
+
+    from repro_torch.core import threefry
+    from repro_torch.data import all_query_plans, generate_healthlnk, plaintext_oracle, revealed_answer
     from repro_torch.ops import SecretTable
 
     rng = np.random.default_rng(7)
@@ -360,43 +461,40 @@ def cross_device_phase(dev) -> None:
         "pid2": rng.integers(0, 12, n).astype(np.uint32),
         "med": rng.choice([1, 2, 3], n).astype(np.uint32),
     }
-    plan = with_resizers(quickstart_plan("pid2"))
-    runs = {}
-    for label, d, fuse in (("cuda", dev, True), ("cpu", torch.device("cpu"), True), ("cuda gates", dev, False)):
-        tables = {
+
+    def quickstart_tables(d):
+        return {
             "diagnoses": SecretTable.from_plaintext(patients, threefry.PRNGKey(0), device=d),
             "medications": SecretTable.from_plaintext(meds, threefry.PRNGKey(1), device=d),
         }
-        engine = Engine(tables, key=threefry.PRNGKey(42), config=RuntimeConfig(fuse_circuits=fuse), device=d)
-        reset_launch_counts()
-        runs[label] = engine.execute(plan)
-        launches = launch_counts()
-        if d.type == "cuda":  # a CPU tensor runs the plain versions and launches nothing
-            torch.cuda.synchronize()
-            want = GATE_KERNELS + (FUSED_KERNELS if fuse else ())
-            check(all(launches.get(k, 0) > 0 for k in want), f"quickstart n=48 {label}: launches {launches}")
-            check(fuse or not any(launches.get(k, 0) for k in FUSED_KERNELS),
-                  f"quickstart n=48 {label}: the gate-by-gate path launched a fused kernel")
-    (gout, grep), (cout, crep), (uout, urep) = runs["cuda"], runs["cpu"], runs["cuda gates"]
-    check(ledger_rows(grep) == ledger_rows(crep), "per-node ledgers or Resize sizes differ between cuda and cpu")
-    check(same_outputs(gout, cout), "output shares differ between cuda and cpu")
-    check(ledger_rows(grep) == ledger_rows(urep), "fused and gate-by-gate ledgers or sizes differ on cuda")
-    check(same_outputs(gout, uout), "fused and gate-by-gate output shares differ on cuda")
-    pids = sorted(set(gout.reveal_true_rows()["pid"].tolist()))
+
+    out, report = three_ways(dev, "quickstart n=48", quickstart_tables, with_resizers(quickstart_plan("pid2")), 42,
+                             "dosage_study")
+    pids = sorted(set(out.reveal_true_rows()["pid"].tolist()))
     want = sorted(set(np.intersect1d(patients["pid"][patients["icd9"] == 414],
                                      meds["pid2"][meds["med"] == 1]).tolist()))
     check(pids == want, f"quickstart rows {pids} != oracle {want}")
-    sizes = [s.extra["s"] for s in grep.nodes if "s" in s.extra]
+    sizes = [s.extra["s"] for s in report.nodes if "s" in s.extra]
     print(f"  quickstart n=48: shares, ledgers and S={sizes} identical on cuda and cpu (fused) and "
           f"on cuda gate by gate; rows {pids}")
-    reset_launch_counts()
+
+    plain = generate_healthlnk(n=n, seed=0, device="cpu")[1]
+    for query in ("comorbidity", "diag_breakdown"):
+        plan = with_resizers(all_query_plans()[query])
+        out, report = three_ways(dev, f"{query} n={n}", lambda d: generate_healthlnk(n=n, seed=0, device=d)[0],
+                                 plan, 46, query)
+        got = revealed_answer(query, plan, out)
+        check(got == plaintext_oracle(query, plain), f"{query} n={n}: {got} differs from the plaintext oracle")
+        sizes = [s.extra["s"] for s in report.nodes if "s" in s.extra]
+        print(f"  {query} n={n}: shares, ledgers and S={sizes} identical on cuda and cpu (fused) and "
+              f"on cuda gate by gate; {len(got)} groups equal the oracle")
 
 
 # ---------------------------------------------------------------------------
 # 3. full-size run
 # ---------------------------------------------------------------------------
 
-def full_phase(dev, n: int, three_join_n: int) -> dict:
+def full_phase(dev, n: int, three_join_n: int, big_n: int) -> dict:
     """The full-size runs, each with its launch counts set to 0 just before
     it and read just after."""
     import numpy as np
@@ -404,31 +502,37 @@ def full_phase(dev, n: int, three_join_n: int) -> dict:
 
     from repro_torch import RuntimeConfig
     from repro_torch.core import threefry
-    from repro_torch.data import aspirin_count_plan, dosage_study_plan, three_join_plan
-    from repro_torch.data.healthlnk import generate_healthlnk, plaintext_oracle
+    from repro_torch.data import all_query_plans, generate_healthlnk, plaintext_oracle, revealed_answer
     from repro_torch.engine import Engine
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     data = {}
-    for rows in (n, three_join_n):
+    for rows in (n, three_join_n, big_n):
         t0 = time.perf_counter()
         data[rows] = generate_healthlnk(n=rows, seed=0, device=dev)
         torch.cuda.synchronize()
         print(f"  generate_healthlnk(n={rows}): {time.perf_counter() - t0:.3f} s (set-up)")
     d, m = data[n][1]["diagnoses"], data[n][1]["medications"]
     quickstart_rows = sorted(int(p) for p in np.intersect1d(d["pid"][d["icd9"] == 414], m["pid"][m["med"] == 1]))
-    # name -> (plan, rows per table, engine key, fused, expected answer); a
-    # COUNT answers with its count, every other plan with its sorted pids
+    plans = all_query_plans()
+    # name -> (golden, plan, rows per table, engine key, fused, expected
+    # answer); the quickstart plan answers in dosage_study's form
     runs = {
-        "aspirin_count": (aspirin_count_plan(), n, 44, True, plaintext_oracle("aspirin_count", data[n][1])),
-        "dosage_study": (dosage_study_plan(), n, 42, True, plaintext_oracle("dosage_study", data[n][1])),
-        "dosage_study gates": (dosage_study_plan(), n, 42, False, plaintext_oracle("dosage_study", data[n][1])),
-        "quickstart": (quickstart_plan("pid"), n, 43, True, quickstart_rows),
-        "three_join": (three_join_plan(), three_join_n, 45, True,
-                       plaintext_oracle("three_join", data[three_join_n][1])),
+        "aspirin_count": ("aspirin_count", plans["aspirin_count"], n, 44, True, None),
+        "dosage_study": ("dosage_study", plans["dosage_study"], n, 42, True, None),
+        "dosage_study gates": ("dosage_study", plans["dosage_study"], n, 42, False, None),
+        "quickstart": ("dosage_study", quickstart_plan("pid"), n, 43, True, quickstart_rows),
+        "comorbidity gates": ("comorbidity", plans["comorbidity"], n, 46, False, None),
     }
+    for i, query in enumerate(NEW_GOLDENS):
+        runs[query] = (query, plans[query], n, 46 + i, True, None)
+    runs["three_join"] = ("three_join", plans["three_join"], three_join_n, 45, True, None)
+    runs[f"comorbidity n={big_n}"] = ("comorbidity", plans["comorbidity"], big_n, 46, True, None)
+
     results, outputs = {}, {}
-    for name, (plan, rows, key, fuse, want) in runs.items():
+    for name, (query, plan, rows, key, fuse, want) in runs.items():
+        if want is None:
+            want = plaintext_oracle(query, data[rows][1])
         engine = Engine(data[rows][0], key=threefry.PRNGKey(key), config=RuntimeConfig(fuse_circuits=fuse),
                         device=dev)
         placed = with_resizers(plan)
@@ -442,36 +546,32 @@ def full_phase(dev, n: int, three_join_n: int) -> dict:
         launches = launch_counts()
         reset_launch_counts()
         peak = torch.cuda.max_memory_allocated(dev)
-        revealed = out.reveal_true_rows()
-        got = int(revealed["cnt"][0]) if "cnt" in revealed else sorted(set(revealed["pid"].tolist()))
+        got = revealed_answer(query, placed, out)
         print(f"  {name} (n={rows}, {'fused' if fuse else 'gate by gate'}): {seconds:.3f} s, "
               f"peak {peak / 2**30:.2f} GiB, launches {launches}")
         for line in report.summary().splitlines():
             print("    " + line)
-        check(got == want, f"{name}: the result differs from the plaintext oracle")
-        need = GATE_KERNELS + (FUSED_KERNELS if fuse else ()) + (("bit2a_fused",) if fuse and "cnt" in revealed else ())
-        for kernel in need:
-            check(launches.get(kernel, 0) > 0, f"{name}: {kernel} was never launched")
-        if not fuse:
-            check(not any(launches.get(k, 0) for k in FUSED_KERNELS + ("bit2a_fused",)),
-                  f"{name}: the gate-by-gate path launched a fused kernel")
-        print(f"  {name}: " + (f"cnt = {got}" if isinstance(got, int) else f"{len(got)} rows")
-              + " equals the plaintext oracle")
+        check(got == want, f"{name}: the result {got} differs from the plaintext oracle {want}")
+        check_launches(name, launches, query, fuse)
+        size = 0 if got is None else 1 if isinstance(got, int) else len(got)
+        print(f"  {name}: " + (f"{got}" if size <= 10 else f"{size} rows") + " equals the plaintext oracle")
         results[name] = {
+            "query": query,
             "n": rows,
             "fused": fuse,
             "seconds": seconds,
             "peak_bytes": peak,
             "launches": launches,
             "nodes": node_rows(report),
-            "result": got if isinstance(got, int) else len(got),
+            "result": got if isinstance(got, int) else size,
         }
-        if name.startswith("dosage_study"):
+        if name.startswith(("dosage_study", "comorbidity")) and rows == n:
             outputs[name] = (out, report)
-    (fout, frep), (gout, grep) = outputs["dosage_study"], outputs["dosage_study gates"]
-    check(ledger_rows(frep) == ledger_rows(grep), "dosage_study: fused and gate-by-gate ledgers or S differ")
-    check(same_outputs(fout, gout), "dosage_study: fused and gate-by-gate output shares differ")
-    print("  dosage_study: output shares, per-node ledger and every S identical fused and gate by gate")
+    for query in ("dosage_study", "comorbidity"):
+        (fout, frep), (gout, grep) = outputs[query], outputs[f"{query} gates"]
+        check(ledger_rows(frep) == ledger_rows(grep), f"{query}: fused and gate-by-gate ledgers or S differ")
+        check(same_outputs(fout, gout), f"{query}: fused and gate-by-gate output shares differ")
+        print(f"  {query}: output shares, per-node ledger and every S identical fused and gate by gate")
     return results
 
 
@@ -525,6 +625,7 @@ def timing_phase(dev, shapes: dict) -> dict:
               f"index_select {library_ms:.4f} ms  bound {bound_ms:.4f} ms (bytes)")
     out["shuffle_gather"] = rows
     out.update(time_fused(dev, rng, shapes))
+    out.update(time_bitonic(dev, rng, shapes))
     return out
 
 
@@ -600,13 +701,48 @@ def time_fused(dev, rng, shapes: dict) -> dict:
     return out
 
 
+def time_bitonic(dev, rng, shapes: dict) -> dict:
+    """``bitonic_swap`` at the largest sort stage of the run: the sort's rows
+    and the columns of its network (a narrowed network carries the key and
+    the row index). Beside it, its plain version and the gate-by-gate route
+    it replaces at the same shape: ``own ^ other``, the mask broadcast to a
+    contiguous (3, C, N), ``rss_gate``, and ``own ^ d``."""
+    from repro_torch.kernels.bitonic_stage import stage_swap, stage_swap_plain
+    from repro_torch.kernels.rss_gate import gate
+
+    n, c = shapes["sort_rows"], shapes["sort_cols"]
+    mask = words(rng, (3, n), dev)
+    own, other, alpha = (words(rng, (3, c, n), dev) for _ in range(3))
+    args = (mask, own, other, alpha)
+
+    def replaced():
+        m3 = mask[:, None, :].expand(own.shape).contiguous()
+        return own ^ gate(m3, own ^ other, alpha, True)
+
+    err = max(max_abs_err(stage_swap(*args), stage_swap_plain(*args)), max_abs_err(replaced(), stage_swap_plain(*args)))
+    check(err == 0, f"bitonic_swap N={n} C={c} differs from its plain version or the route it replaces")
+    ms = median_ms(lambda: stage_swap(*args))
+    plain_ms = median_ms(lambda: stage_swap_plain(*args))
+    replaced_ms = median_ms(replaced)
+    bytes_moved = 4 * (3 * n + 4 * 3 * c * n)  # mask, own, other, alpha read; out written
+    ops = 3 * c * n * 8  # per column word: 1 XOR for d, 3 ANDs, 3 XORs, 1 XOR into own
+    bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
+    by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S else "operations"
+    print(f"  bitonic_swap N={n:>9} C={c}: {ms:.4f} ms  plain {plain_ms:.4f} ms  replaced route "
+          f"{replaced_ms:.4f} ms  bound {bound_ms:.4f} ms ({by}, {bytes_moved / 2**20:.1f} MiB), "
+          f"{100 * bound_ms / ms:.1f} % of the bound")
+    return {"bitonic_swap": [{
+        "n": n, "c": c, "bytes": bytes_moved, "ms": ms, "plain_ms": plain_ms, "replaced_route_ms": replaced_ms,
+        "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err, "library_ms": None}]}
+
+
 # ---------------------------------------------------------------------------
 # 5. (--profile) device-time breakdown of the two heaviest operators
 # ---------------------------------------------------------------------------
 
 def _kernel_category(name: str) -> str:
     low = name.lower()
-    for kernel in ("rss_gate", "shuffle_gather", "ks_prefix", "and_fold", "a2b", "bit2a"):
+    for kernel in ("rss_gate", "shuffle_gather", "ks_prefix", "and_fold", "a2b", "bit2a", "bitonic_swap"):
         if kernel in low:
             return f"{kernel} kernel"
     if "sort" in low or "radix" in low:
@@ -706,16 +842,18 @@ def largest_shapes(full: dict) -> dict:
             if name.startswith("Distinct"):
                 distinct_rows = max(distinct_rows, node["n_out"])
                 sort_rows = max(sort_rows, node["n_out"])
-            if name.startswith("CountDistinct"):
+            if name.startswith(("CountDistinct", "GroupBy", "OrderBy", "Min", "Max")):
                 sort_rows = max(sort_rows, pow2(n_in))
+            if name.startswith("CountDistinct"):
                 count_rows = max(count_rows, pow2(n_in))
             if name.startswith("Join"):
                 join_rows = max(join_rows, node["n_out"])
             if name.startswith("Resize"):
                 resize_rows = max(resize_rows, n_in)
-    # rss_gate's largest call: the sort's select over its two network
-    # columns (key and row index), two words a row
-    return {"gate_lanes": 2 * sort_rows, "sort_rows": sort_rows, "join_rows": join_rows,
+    # the largest sort is a Distinct's (three_join's CountDistinct): its
+    # narrowed network carries two columns, the key and the row index, and
+    # rss_gate's largest call is the gate-by-gate select over them
+    return {"gate_lanes": 2 * sort_rows, "sort_rows": sort_rows, "sort_cols": 2, "join_rows": join_rows,
             "resize_rows": resize_rows, "count_rows": count_rows, "distinct_rows": distinct_rows}
 
 
@@ -751,8 +889,9 @@ def main(argv=None) -> int:
     print("[2] cross-device: quickstart n=48 on cuda and cpu")
     cross_device_phase(dev)
 
-    print(f"[3] full size: n={ROWS_PER_TABLE} rows per table (three_join: n={THREE_JOIN_ROWS})")
-    full = full_phase(dev, ROWS_PER_TABLE, THREE_JOIN_ROWS)
+    print(f"[3] full size: n={ROWS_PER_TABLE} rows per table (three_join: n={THREE_JOIN_ROWS}; "
+          f"comorbidity also at n={BIG_ROWS})")
+    full = full_phase(dev, ROWS_PER_TABLE, THREE_JOIN_ROWS, BIG_ROWS)
 
     shapes = largest_shapes(full)
     print(f"[4] kernel timing at the run's shapes {shapes}")
@@ -778,7 +917,7 @@ def main(argv=None) -> int:
         })
     total_s = time.perf_counter() - t_all
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-               "n": ROWS_PER_TABLE, "three_join_n": THREE_JOIN_ROWS, "build_s": build_s, "total_s": total_s, "full": full,
+               "n": ROWS_PER_TABLE, "three_join_n": THREE_JOIN_ROWS, "big_n": BIG_ROWS, "build_s": build_s, "total_s": total_s, "full": full,
                "timing": timing, "profile": profiled, "summary": summary}
     print(f"total {total_s:.1f} s")
     if args.out:

@@ -3,9 +3,13 @@
 A bitonic network on N = 2^m rows has m(m+1)/2 compare-exchange stages; each
 costs one oblivious ``lt`` over N lanes plus one batched AND-select over all
 columns. A port of ``repro.core.sort`` (fold tags 7k+j, 9000+31k+7j, 686 and
-the lexicographic combine tags are the reference's). Every AND goes through
-``rss_gate``; ``bitonic_swap``'s fused stage select is not used by the
-reference's ``_stage`` and is not ported yet.
+the lexicographic combine tags are the reference's).
+
+The stage's conditional swap is ``own ^ and_(m, own ^ other)``. On the
+fused circuit path it runs as one ``bitonic_swap`` launch over all columns
+(``kernels/bitonic_stage``), with alpha drawn from the select's fold at the
+shape ``and_`` draws it and the same ledger entry, so its shares and costs
+equal the gate-by-gate path's ``rss_gate`` select bit for bit.
 """
 from __future__ import annotations
 
@@ -14,9 +18,11 @@ from typing import Dict, List, Sequence, Union
 
 import torch
 
+from ..kernels import fusion_enabled
+from ..kernels.bitonic_stage import stage_swap
 from .circuits import and_bit, eq, lt, or_bit
-from .ledger import fused_scope
-from .prf import PRFSetup
+from .ledger import fused_scope, log_comm
+from .prf import PRFSetup, zero_share_xor
 from .sharing import AShare, BShare, and_, const_b
 
 __all__ = ["bitonic_sort", "bitonic_sort_narrow", "bitonic_stages"]
@@ -87,9 +93,15 @@ def _stage(
     names = list(cols)
     own = torch.stack([cols[nm].shares for nm in names], dim=1)  # (3, C, n)
     other = own.index_select(2, partner)
-    m3 = BShare(mask.shares[:, None, :].expand(own.shape))
-    d = and_(m3, BShare(own ^ other), prf.fold(9000 + 31 * k + 7 * j))
-    new = own ^ d.shares
+    p_sel = prf.fold(9000 + 31 * k + 7 * j)
+    if fusion_enabled():
+        # and_'s draw at the broadcast (C, n) shape, and its ledger entry
+        alpha = zero_share_xor(p_sel, own.shape[1:], device)
+        log_comm("and", 1, own[0].numel() * keyb.ring.bytes)
+        new = stage_swap(mask.shares, own, other, alpha)
+    else:
+        m3 = BShare(mask.shares[:, None, :].expand(own.shape))
+        new = own ^ and_(m3, BShare(own ^ other), p_sel).shares
     return {nm: BShare(new[:, i]) for i, nm in enumerate(names)}
 
 

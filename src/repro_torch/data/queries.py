@@ -1,10 +1,31 @@
-"""Hand-compiled plans of the port (paper Table 2). Filters are pushed below
-joins; Resizer placement is applied separately with
-:func:`repro_torch.plan.policies.insert_resizers`."""
+"""Hand-compiled plans of the port: the fourteen HealthLNK goldens of
+``repro.data.queries`` (paper Table 2 and the dialect goldens), with the
+reference's names. Filters are pushed below joins; Resizer placement is
+applied separately with :func:`repro_torch.plan.policies.insert_resizers`."""
 from __future__ import annotations
 
-from ..ops.filter import Predicate
-from ..plan.nodes import CountDistinct, Distinct, Filter, Join, PlanNode, Scan
+from typing import Dict
+
+from ..ops.filter import Or, Predicate
+from ..plan.nodes import (
+    Avg,
+    CountDistinct,
+    CountValid,
+    Distinct,
+    Filter,
+    GroupByAvg,
+    GroupByCount,
+    GroupBySum,
+    Having,
+    Join,
+    Max,
+    Min,
+    OrderBy,
+    PlanNode,
+    Project,
+    Scan,
+    Sum,
+)
 from .healthlnk import (
     DIAG_HEART_DISEASE,
     DOSAGE_325MG,
@@ -13,7 +34,29 @@ from .healthlnk import (
     MED_ASPIRIN,
 )
 
-__all__ = ["dosage_study_plan", "aspirin_count_plan", "three_join_plan"]
+__all__ = [
+    "comorbidity_plan",
+    "dosage_study_plan",
+    "aspirin_count_plan",
+    "three_join_plan",
+    "projection_join_plan",
+    "dosage_sum_plan",
+    "dosage_avg_plan",
+    "dosage_min_plan",
+    "dosage_max_plan",
+    "heart_or_circulatory_plan",
+    "diag_breakdown_plan",
+    "med_dosage_sum_plan",
+    "med_dosage_avg_plan",
+    "repeat_diagnoses_plan",
+    "all_query_plans",
+]
+
+
+def comorbidity_plan() -> PlanNode:
+    """SELECT major_icd9, COUNT(*) FROM diagnoses GROUP BY major_icd9
+    ORDER BY COUNT(*) DESC LIMIT 10."""
+    return OrderBy(GroupByCount(Scan("diagnoses"), "major_icd9"), col="cnt", descending=True, limit=10)
 
 
 def dosage_study_plan() -> PlanNode:
@@ -45,3 +88,86 @@ def three_join_plan() -> PlanNode:
     j2 = Join(j1, Scan("demographics"), ("pid", "pid"))
     j3 = Join(j2, Scan("demographics"), ("pid", "pid"))
     return CountDistinct(j3, "pid")
+
+
+def _aspirin() -> PlanNode:
+    return Filter(Scan("medications"), [Predicate("med", "eq", MED_ASPIRIN)])
+
+
+def projection_join_plan() -> PlanNode:
+    """SELECT d.pid, m.dosage FROM diagnoses d JOIN medications m ON
+    d.pid = m.pid WHERE m.med='aspirin'."""
+    return Project(Join(Scan("diagnoses"), _aspirin(), ("pid", "pid")), ("pid", "dosage"))
+
+
+def dosage_sum_plan() -> PlanNode:
+    """SELECT SUM(dosage) AS total FROM medications WHERE med='aspirin'."""
+    return Sum(_aspirin(), "dosage", name="total")
+
+
+def dosage_avg_plan() -> PlanNode:
+    """SELECT AVG(dosage) AS avg_dosage FROM medications WHERE med='aspirin'
+    (revealed as (sum, cnt))."""
+    return Avg(_aspirin(), "dosage", name="avg_dosage")
+
+
+def dosage_min_plan() -> PlanNode:
+    """SELECT MIN(dosage) AS lo FROM medications WHERE med='aspirin'."""
+    return Min(_aspirin(), "dosage", name="lo")
+
+
+def dosage_max_plan() -> PlanNode:
+    """SELECT MAX(dosage) AS hi FROM medications WHERE med='aspirin'."""
+    return Max(_aspirin(), "dosage", name="hi")
+
+
+def heart_or_circulatory_plan() -> PlanNode:
+    """SELECT COUNT(*) FROM diagnoses WHERE icd9='414' OR icd9='circulatory'."""
+    return CountValid(
+        Filter(
+            Scan("diagnoses"),
+            Or((Predicate("icd9", "eq", ICD9_HEART_414), Predicate("icd9", "eq", ICD9_CIRCULATORY))),
+        )
+    )
+
+
+def diag_breakdown_plan() -> PlanNode:
+    """SELECT major_icd9, diag, COUNT(*) FROM diagnoses GROUP BY
+    major_icd9, diag (a composite key)."""
+    return GroupByCount(Scan("diagnoses"), ("major_icd9", "diag"))
+
+
+def med_dosage_sum_plan() -> PlanNode:
+    """SELECT med, SUM(dosage) AS total FROM medications GROUP BY med."""
+    return GroupBySum(Scan("medications"), "med", "dosage", name="total")
+
+
+def med_dosage_avg_plan() -> PlanNode:
+    """SELECT med, AVG(dosage) AS mean FROM medications GROUP BY med
+    (revealed as per-group (sum, cnt))."""
+    return GroupByAvg(Scan("medications"), "med", "dosage", name="mean")
+
+
+def repeat_diagnoses_plan() -> PlanNode:
+    """SELECT major_icd9, COUNT(*) AS cnt FROM diagnoses GROUP BY major_icd9
+    HAVING COUNT(*) >= 2 (on the integers: cnt > 1)."""
+    return Having(GroupByCount(Scan("diagnoses"), "major_icd9"), [Predicate("cnt", "gt", 1)])
+
+
+def all_query_plans() -> Dict[str, PlanNode]:
+    return {
+        "comorbidity": comorbidity_plan(),
+        "dosage_study": dosage_study_plan(),
+        "aspirin_count": aspirin_count_plan(),
+        "three_join": three_join_plan(),
+        "projection_join": projection_join_plan(),
+        "dosage_sum": dosage_sum_plan(),
+        "dosage_avg": dosage_avg_plan(),
+        "dosage_min": dosage_min_plan(),
+        "dosage_max": dosage_max_plan(),
+        "heart_or_circulatory": heart_or_circulatory_plan(),
+        "diag_breakdown": diag_breakdown_plan(),
+        "med_dosage_sum": med_dosage_sum_plan(),
+        "med_dosage_avg": med_dosage_avg_plan(),
+        "repeat_diagnoses": repeat_diagnoses_plan(),
+    }

@@ -8,7 +8,10 @@
 * ``a2b_fused``      — the whole arithmetic -> boolean conversion (two
                        chained Kogge-Stone adders) in one launch, and
                        ``bit2a_fused``, the bit injection's two dependent
-                       ring products.
+                       ring products;
+* ``bitonic_stage``  — ``bitonic_swap``, one bitonic sort stage's
+                       conditional swap over all columns (the select of
+                       every stage on the fused path).
 
 Each kernel is a CUDA C++ source in ``csrc/`` with a plain C entry point.
 :func:`library` builds them at first use — one ``nvcc`` per source for
@@ -16,17 +19,18 @@ Each kernel is a CUDA C++ source in ``csrc/`` with a plain C entry point.
 checkout's sources alone into ``kernels/_build/`` (ignored by git), and loads
 it with ``ctypes``. Each wrapper (``rss_gate.gate``,
 ``shuffle_gather.shuffle_gather``, ``ks_prefix.ks_prefix`` / ``and_fold``,
-``a2b_fused.a2b_kernel`` / ``bit2a_kernel``) launches its kernel for a CUDA
-tensor and runs its plain PyTorch version for a CPU tensor; it records one
-launch in :func:`launch_counts` where it launches its kernel, and nowhere
-else.
+``a2b_fused.a2b_kernel`` / ``bit2a_kernel``, ``bitonic_stage.stage_swap``)
+launches its kernel for a CUDA tensor and runs its plain PyTorch version for
+a CPU tensor; it records one launch in :func:`launch_counts` where it
+launches its kernel, and nowhere else.
 
 Circuit fusion
 --------------
 The device is the kernel switch; :func:`fusion_enabled` picks the circuit
 path. On (``RuntimeConfig.fuse_circuits``, the default) the comparison,
 equality and conversion circuits go through the fused kernels, one launch a
-circuit; off, they run gate by gate through ``rss_gate``. Both paths draw
+circuit, and each sort stage's select through ``bitonic_swap``; off, they
+run gate by gate through ``rss_gate``. Both paths draw
 the same randomness and log the same ledger entries, so their shares and
 costs are bit-identical. :func:`override_fusion` sets the path for the
 current thread; the engine applies its config with it for one execution.
@@ -181,6 +185,9 @@ def library() -> ctypes.CDLL:
             # (b, alpha, out, n, stream)
             lib.bit2a_launch.argtypes = [vp, vp, vp, i64, vp]
             lib.bit2a_launch.restype = i32
+            # (mask, own, other, alpha, out, c, n, stream)
+            lib.bitonic_swap_launch.argtypes = [vp, vp, vp, vp, vp, i64, i64, vp]
+            lib.bitonic_swap_launch.restype = i32
             lib.kernel_error_string.argtypes = [i32]
             lib.kernel_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -93,6 +93,10 @@ class SecretTable:
             self.valid.take(idx, axis=0),
         )
 
+    def select_columns(self, names) -> "SecretTable":
+        """Keep only the named columns (a local projection)."""
+        return SecretTable({k: self.cols[k] for k in names}, self.valid)
+
     def pad_rows(self, n_rows: int) -> "SecretTable":
         """Pad with all-zero-share rows: value 0, valid 0 (materializes lazy
         columns: filler shares are not a base-row view)."""

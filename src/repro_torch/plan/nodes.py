@@ -1,5 +1,6 @@
-"""Plan nodes of the port: Scan, Filter, Join, Resize, Distinct, CountValid,
-CountDistinct.
+"""Plan nodes of the port: Scan, Filter, Having, Project, Join, GroupByCount,
+GroupBySum, GroupByAvg, OrderBy, Distinct, CountValid, CountDistinct, Sum,
+Avg, Min, Max and Resize.
 
 A plan is a tree of dataclass nodes with ``Scan`` leaves over named base
 tables; each node type is registered in :mod:`.registry`. ``describe()``
@@ -9,12 +10,31 @@ rows that the parity tests compare).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 from ..core.resizer import ResizerConfig
 from ..ops.filter import Pred, normalize_pred, render_pred
 
-__all__ = ["PlanNode", "Scan", "Filter", "Join", "Distinct", "Resize", "CountValid", "CountDistinct"]
+__all__ = [
+    "PlanNode",
+    "Scan",
+    "Filter",
+    "Having",
+    "Project",
+    "Join",
+    "GroupByCount",
+    "GroupBySum",
+    "GroupByAvg",
+    "OrderBy",
+    "Distinct",
+    "CountValid",
+    "CountDistinct",
+    "Sum",
+    "Avg",
+    "Min",
+    "Max",
+    "Resize",
+]
 
 
 @dataclasses.dataclass
@@ -65,6 +85,37 @@ class Filter(PlanNode):
 
 
 @dataclasses.dataclass
+class Having(PlanNode):
+    """Post-aggregation filter (SQL HAVING): the WHERE filter's protocol on a
+    GROUP BY output, whose predicate names the output columns (the count
+    column is arithmetic and converts through ``a2b``). Only validity bits
+    flip; the size never changes."""
+
+    child: PlanNode
+    pred: Pred
+
+    def __post_init__(self):
+        self.pred = normalize_pred(self.pred)
+
+    def describe(self) -> str:
+        return f"Having({render_pred(self.pred)})"
+
+
+@dataclasses.dataclass
+class Project(PlanNode):
+    """Keep only the named columns (and the valid column): local, free."""
+
+    child: PlanNode
+    cols: Tuple[str, ...]
+
+    def __post_init__(self):
+        self.cols = tuple(self.cols)
+
+    def describe(self) -> str:
+        return f"Project({','.join(self.cols)})"
+
+
+@dataclasses.dataclass
 class Join(PlanNode):
     left: PlanNode
     right: PlanNode
@@ -74,6 +125,75 @@ class Join(PlanNode):
     def describe(self) -> str:
         t = f" theta={self.theta}" if self.theta else ""
         return f"Join({self.on[0]}=={self.on[1]}{t})"
+
+
+def _canonical_key(key) -> Union[str, Tuple[str, ...]]:
+    """A one-column key is a plain string (the reference's canonical form)."""
+    if isinstance(key, str):
+        return key
+    key = tuple(key)
+    return key[0] if len(key) == 1 else key
+
+
+class _Keyed:
+    key: Union[str, Tuple[str, ...]]
+
+    def __post_init__(self):
+        self.key = _canonical_key(self.key)
+
+    @property
+    def keys(self) -> Tuple[str, ...]:
+        return (self.key,) if isinstance(self.key, str) else self.key
+
+
+@dataclasses.dataclass
+class GroupByCount(_Keyed, PlanNode):
+    """GROUP BY one or more key columns with COUNT(*)."""
+
+    child: PlanNode
+    key: Union[str, Tuple[str, ...]]
+    count_name: str = "cnt"
+
+    def describe(self) -> str:
+        return f"GroupByCount({','.join(self.keys)}->{self.count_name})"
+
+
+@dataclasses.dataclass
+class GroupBySum(_Keyed, PlanNode):
+    """GROUP BY key column(s) with SUM(col) (segmented arithmetic scan)."""
+
+    child: PlanNode
+    key: Union[str, Tuple[str, ...]]
+    col: str = ""
+    name: str = "sum"
+
+    def describe(self) -> str:
+        return f"GroupBySum({','.join(self.keys)}:{self.col}->{self.name})"
+
+
+@dataclasses.dataclass
+class GroupByAvg(_Keyed, PlanNode):
+    """GROUP BY key column(s) with AVG(col): the per-group (sum, count) pair,
+    divided after the reveal."""
+
+    child: PlanNode
+    key: Union[str, Tuple[str, ...]]
+    col: str = ""
+    name: str = "avg"
+
+    def describe(self) -> str:
+        return f"GroupByAvg({','.join(self.keys)}:{self.col}->{self.name})"
+
+
+@dataclasses.dataclass
+class OrderBy(PlanNode):
+    child: PlanNode
+    col: str
+    descending: bool = False
+    limit: Optional[int] = None
+
+    def describe(self) -> str:
+        return f"OrderBy({self.col}{' DESC' if self.descending else ''}, limit={self.limit})"
 
 
 @dataclasses.dataclass
@@ -104,6 +224,55 @@ class CountDistinct(PlanNode):
 
     def describe(self) -> str:
         return f"CountDistinct({self.col})"
+
+
+@dataclasses.dataclass
+class Sum(PlanNode):
+    """SUM(col) over true rows -> 1-row table with an arithmetic share."""
+
+    child: PlanNode
+    col: str
+    name: str = "sum"
+
+    def describe(self) -> str:
+        return f"Sum({self.col}->{self.name})"
+
+
+@dataclasses.dataclass
+class Avg(PlanNode):
+    """AVG(col) -> 1-row (sum, count) pair, divided after the reveal."""
+
+    child: PlanNode
+    col: str
+    name: str = "avg"
+
+    def describe(self) -> str:
+        return f"Avg({self.col}->{self.name})"
+
+
+@dataclasses.dataclass
+class Min(PlanNode):
+    """MIN(col) over true rows -> 1-row table (sort head); an empty
+    selection reveals no row."""
+
+    child: PlanNode
+    col: str
+    name: str = "min"
+
+    def describe(self) -> str:
+        return f"Min({self.col}->{self.name})"
+
+
+@dataclasses.dataclass
+class Max(PlanNode):
+    """MAX(col) over true rows -> 1-row table (sort head)."""
+
+    child: PlanNode
+    col: str
+    name: str = "max"
+
+    def describe(self) -> str:
+        return f"Max({self.col}->{self.name})"
 
 
 @dataclasses.dataclass

@@ -20,7 +20,8 @@ def insert_resizers(
     placement:
       * ``none``          — fully oblivious (no resizers)
       * ``all_internal``  — after every non-root operator whose registry hint
-                            is ``internal`` (Filter / Join: the paper's setup)
+                            is ``internal`` (Filter, Join, GroupBy and
+                            Having: the paper's setup)
       * ``after_joins``   — only after the ``internal`` operators that balloon
                             (Join, the product)
 

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.a2b_fused import a2b_kernel, a2b_plain, bit2a_kernel, bit2a_plain
+from repro_torch.kernels.bitonic_stage import stage_swap, stage_swap_plain
 from repro_torch.kernels.ks_prefix import (
     and_fold,
     and_fold_plain,
@@ -180,3 +181,53 @@ def test_fused_wrappers_raise_on_bad_input(cuda):
         bit2a_kernel(x, torch.zeros((3, 2, 8), dtype=torch.int32))
     with pytest.raises(TypeError):
         and_fold(x.long(), torch.zeros((3, 1, 8), dtype=torch.int64, device=cuda), (1,))
+
+
+@pytest.mark.parametrize("c", [1, 3, 9])
+@pytest.mark.parametrize("n", [1, 3, 128, 257, 1024, 4099])
+def test_bitonic_swap_kernel_equals_plain(cuda, n, c):
+    rng = np.random.default_rng(n * 10 + c)
+    mask = _words(rng, (3, n), cuda)
+    own, other, alpha = (_words(rng, (3, c, n), cuda) for _ in range(3))
+    reset_launch_counts()
+    got = stage_swap(mask, own, other, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(got, stage_swap_plain(mask, own, other, alpha))
+    assert launch_counts().get("bitonic_swap", 0) == 1
+
+
+def test_bitonic_swap_kernel_unaligned_planes(cuda):
+    # views one word into their storage: the kernel must take the scalar path
+    rng = np.random.default_rng(6)
+    n, c = 1024, 3
+    mask = _words(rng, (3 * n + 1,), cuda)[1:].view(3, n)
+    own = _words(rng, (3 * c * n + 1,), cuda)[1:].view(3, c, n)
+    other = _words(rng, (3, c, n), cuda)
+    alpha = _words(rng, (3 * c * n + 1,), cuda)[1:].view(3, c, n)
+    assert torch.equal(stage_swap(mask, own, other, alpha), stage_swap_plain(mask, own, other, alpha))
+    with pytest.raises(ValueError):  # non-contiguous operand
+        stage_swap(mask, own.transpose(1, 2).contiguous().transpose(1, 2), other, alpha)
+
+
+def test_sort_on_cuda_equals_cpu(cuda):
+    # a 2^12-row, two-key sort with payload narrowing, fused and gate by gate
+    from repro_torch.core import threefry
+    from repro_torch.core.prf import setup_prf
+    from repro_torch.core.sharing import BShare
+    from repro_torch.core.sort import bitonic_sort_narrow
+    from repro_torch.kernels import override_fusion
+
+    rng = np.random.default_rng(7)
+    n = 1 << 12
+    cols = {name: _words(rng, (3, n), "cpu") for name in ("a", "b", "c", "d")}
+    cols["a"] &= 7
+    prf = setup_prf(threefry.PRNGKey(8))
+    want = bitonic_sort_narrow({k: BShare(v) for k, v in cols.items()}, ("a", "b"), prf)
+    for fused in (True, False):
+        reset_launch_counts()
+        with override_fusion(fused):
+            got = bitonic_sort_narrow({k: BShare(v.to(cuda)) for k, v in cols.items()}, ("a", "b"), prf)
+        torch.cuda.synchronize()
+        assert (launch_counts().get("bitonic_swap", 0) > 0) == fused
+        for name in cols:
+            assert torch.equal(got[name].shares.cpu(), want[name].shares), name

@@ -129,7 +129,7 @@ def test_vectorised_oracle_equals_the_reference(n, seed):
     # plaintext only: the port's numpy oracle against repro's nested loops,
     # also with half the patients missing from demographics
     _, plain = jgenerate(n=n, seed=seed, aspirin_frac=0.4, icd_heart_frac=0.3)
-    for query in ("dosage_study", "aspirin_count", "three_join"):
+    for query in all_query_plans():
         assert toracle(query, plain) == joracle(query, plain)
     demo = plain["demographics"]
     half = {**plain, "demographics": {c: v[::2] for c, v in demo.items()}}

@@ -8,14 +8,16 @@ Run from the repository root, with no arguments:
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 runs these phases; each one fails the run (non-zero exit) on any mismatch:
 
-1. kernels: ``rss_gate`` (both modes), ``shuffle_gather``, the fused
-   circuit kernels ``ks_prefix``, ``and_fold``, ``a2b_fused`` and
-   ``bit2a_fused``, and the sort's stage select ``bitonic_swap`` against
-   their plain PyTorch versions on the card, bit for bit, at the listed
-   shapes (the gather well above the TPU kernel's 8 MiB VMEM limit; the
-   fused kernels and ``bitonic_swap`` at ragged lane counts and on unaligned
-   planes, the fused kernels at the widths the path uses, and ``bit2a`` on a
-   2-D lane shape);
+1. kernels: ``rss_gate`` (both modes), ``shuffle_gather`` and the hop
+   gather ``gather_hop`` on both of its routes, the fused circuit kernels
+   ``ks_prefix``, ``and_fold``, ``a2b_fused`` and ``bit2a_fused``, and the
+   sort's stage select ``bitonic_swap`` against their plain PyTorch versions
+   on the card, bit for bit, at the listed shapes (the gather well above the
+   TPU kernel's 8 MiB VMEM limit: direct at 2^20 rows, two-pass at 2^24 + 3
+   rows with 2 and 6 columns of mixed widths, on unaligned and strided
+   planes and with indices out of range; the fused kernels and
+   ``bitonic_swap`` at ragged lane counts and on unaligned planes, the fused
+   kernels at the widths the path uses, and ``bit2a`` on a 2-D lane shape);
 2. cross-device: the quickstart plan, ``comorbidity`` and
    ``diag_breakdown`` (n=48) on the default fused path on ``cuda`` and on
    ``cpu`` give identical output shares, per-node (rounds, bytes/party) and
@@ -30,17 +32,23 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
    AVG, HAVING), ``three_join`` at a reduced n (its later product joins grow
    as n^3 and n^4), and ``comorbidity`` once more over a 1,048,576-row
    diagnoses table. Launch counts are reset before each run and read after
-   it; every kernel of that run's path must have launched, and every answer
-   must equal the plaintext oracle. Per-node seconds, S, peak memory and
-   launch counts are printed;
+   it; every kernel of that run's path must have launched, the gather once
+   per shuffle hop (twice, after its plan, on a two-pass hop), and every
+   answer must equal the plaintext oracle. Per-node seconds, S, peak memory,
+   launch counts and each run's shuffle hops (rows, planes, column widths)
+   are printed;
 4. timing: each kernel's median time at the shapes the full-size run gave
    it, beside its plain version, the one-call library equivalent (where one
    exists) and the least time the card could take (``bound_ms``); for
    ``bitonic_swap`` also the gate-by-gate route it replaces at the same
-   shape;
+   shape; for the gather, at the largest recorded hop and at one column over
+   the largest join's rows, also the direct route, the plan alone and the
+   one-pass sector cost, then both routes over hops from 6 to 192 MiB (the
+   size rule) and the two-pass route's chunk size;
 5. with ``--profile`` only: a ``torch.profiler`` breakdown of device time
    by kernel for one stage of the full-size Distinct's sort (2^23 rows) on
-   the fused and on the gate-by-gate path, and one join tile.
+   the fused and on the gate-by-gate path, one join tile, and the largest
+   shuffle hop.
 
 The lines before the last are the ``{"kernels": [...]}`` summary and the
 card's name and power limit from ``nvidia-smi``; the last line is
@@ -77,6 +85,10 @@ BIG_ROWS = 1 << 20
 GATHER_ROWS = 7_900_000
 # timed calls in a row per kernel measurement
 REPS = 20
+# rows of the hops (two one-word columns, 24 bytes a row) over which phase 4
+# times both gather routes, 6 MiB to 288 MiB (1 to 48 MiB a plane): the
+# measurement behind the size rule between them
+SIZE_RULE_ROWS = (1 << 18, 1 << 20, 1 << 21, 1 << 22, 5 << 20, 6 << 20, 7 << 20, 1 << 23, 3 << 22)
 
 CSRC = "src/repro_torch/kernels/csrc/"
 # name (as the launch counts have it) -> (CUDA source, TPU kernel it replaces)
@@ -203,7 +215,7 @@ def kernel_phase(dev) -> dict:
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.rss_gate import gate, gate_plain
-    from repro_torch.kernels.shuffle_gather import shuffle_gather, shuffle_gather_plain
+    from repro_torch.kernels.shuffle_gather import shuffle_gather, shuffle_gather_plain, uses_two_pass
 
     errs = dict.fromkeys(KERNELS, 0)
     rng = np.random.default_rng(0)
@@ -224,10 +236,11 @@ def kernel_phase(dev) -> dict:
         reset_launch_counts()
         got = shuffle_gather(planes, perm)
         torch.cuda.synchronize()
-        check(launch_counts().get("shuffle_gather", 0) == 1, f"shuffle_gather n={n} did not launch")
+        passes = 2 if uses_two_pass(n, c) else 1
+        check(launch_counts().get("shuffle_gather", 0) == passes, f"shuffle_gather n={n} did not launch")
         err = max_abs_err(got, shuffle_gather_plain(planes, perm))
         mib = planes[0].numel() * 4 / 2**20
-        print(f"  shuffle_gather (N, C)=({n}, {c}) plane={mib:.1f} MiB  max_abs_err={err}")
+        print(f"  shuffle_gather (N, C)=({n}, {c}) plane={mib:.1f} MiB, {passes} pass(es)  max_abs_err={err}")
         check(err == 0, f"shuffle_gather ({n}, {c}) differs from its plain version")
         errs["shuffle_gather"] = max(errs["shuffle_gather"], err)
     # an index outside [0, N) reads as zeros in the kernel and the plain version
@@ -238,10 +251,67 @@ def kernel_phase(dev) -> dict:
     err = max_abs_err(got, shuffle_gather_plain(planes, perm))
     print(f"  shuffle_gather (N, C)=(257, 3), 3 indices out of range  max_abs_err={err}")
     check(err == 0 and not got[:, [0, 128, 256]].any(), "shuffle_gather: out-of-range rows differ")
+    hop_kernel_checks(dev, rng, errs)
     fused_kernel_checks(dev, rng, errs)
     bitonic_kernel_checks(dev, rng, errs)
     reset_launch_counts()
     return errs
+
+
+def hop_kernel_checks(dev, rng, errs: dict) -> None:
+    """The hop gather on both routes against the plain gather, bit for bit:
+    direct at 2^20 rows, two-pass at 2^24 + 3 rows with 2 and 6 columns of
+    mixed widths (each with its launch counts), a column one word off its
+    storage and columns sliced from a stacked one, out-of-range indices; and
+    the two-pass plan's counts and scans against the plain plan."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.shuffle_gather import (
+        gather_direct,
+        gather_hop,
+        gather_plan,
+        gather_plan_plain,
+        gather_two_pass,
+        shuffle_gather_plain,
+    )
+
+    def hop(n, widths):
+        return [words(rng, (3, n, w), dev) for w in widths], torch.randperm(n, device=dev)
+
+    def compare(label, got, cols, index):
+        torch.cuda.synchronize()
+        err = max(max_abs_err(out, shuffle_gather_plain(col, index)) for out, col in zip(got, cols))
+        print(f"  gather_hop {label}  max_abs_err={err}")
+        check(err == 0, f"gather_hop {label} differs from the plain gather")
+        errs["shuffle_gather"] = max(errs["shuffle_gather"], err)
+
+    cases = [("direct", 1 << 20, (1, 3, 1), {"shuffle_gather": 1}),
+             ("two-pass", (1 << 24) + 3, (1, 1), {"shuffle_plan": 1, "shuffle_gather": 2}),
+             ("two-pass", (1 << 24) + 3, (1, 3, 1, 2, 1, 1), {"shuffle_plan": 1, "shuffle_gather": 2})]
+    for route, n, widths, want in cases:
+        cols, index = hop(n, widths)
+        reset_launch_counts()
+        got = (gather_direct if route == "direct" else gather_hop)(cols, index)
+        compare(f"{route} N={n} widths={widths}", got, cols, index)
+        check(launch_counts() == want, f"gather_hop {route} N={n}: launches {launch_counts()}, not {want}")
+        del cols, index, got
+    n = 300_001
+    shifted = words(rng, (3 * n * 2 + 1,), dev)[1:].view(3, n, 2)
+    stacked = words(rng, (3, n, 3), dev)
+    cols = [shifted, stacked[:, :, 0:1], stacked[:, :, 1:3]]
+    index = torch.randperm(n, device=dev)
+    bad_index = index.clone()
+    bad = torch.tensor([0, 7, n // 2, n - 1], device=dev)
+    bad_index[bad] = torch.tensor([-1, n, 2**40, -(2**40)], device=dev)
+    for idx, label in ((index, "unaligned and strided planes"), (bad_index, "4 indices out of range")):
+        compare(f"direct N={n} {label}", gather_direct(cols, idx), cols, idx)
+        compare(f"two-pass N={n} {label}", gather_two_pass(cols, idx, chunk_rows=20_000, tile_rows=512), cols, idx)
+    plan = gather_plan(bad_index, 20_000, 2048)
+    want_plan = gather_plan_plain(bad_index, 20_000, 2048)
+    same = all(torch.equal(getattr(plan, k), getattr(want_plan, k)) for k in ("counts", "start"))
+    print(f"  gather_plan N={n}: counts and starts {'equal' if same else 'differ from'} the plain plan")
+    check(same, "gather_plan's counts or starts differ from the plain plan")
 
 
 def operand(rng, shape, dev, aligned: bool):
@@ -496,15 +566,13 @@ def cross_device_phase(dev) -> None:
 
 def full_phase(dev, n: int, three_join_n: int, big_n: int) -> dict:
     """The full-size runs, each with its launch counts set to 0 just before
-    it and read just after."""
+    it and read just after, and the shape of each shuffle hop it gathers
+    (rows, planes, the columns' widths)."""
     import numpy as np
     import torch
 
-    from repro_torch import RuntimeConfig
-    from repro_torch.core import threefry
-    from repro_torch.data import all_query_plans, generate_healthlnk, plaintext_oracle, revealed_answer
-    from repro_torch.engine import Engine
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    import repro_torch.core.shuffle as shuffle
+    from repro_torch.data import all_query_plans, generate_healthlnk
 
     data = {}
     for rows in (n, three_join_n, big_n):
@@ -529,6 +597,39 @@ def full_phase(dev, n: int, three_join_n: int, big_n: int) -> dict:
     runs["three_join"] = ("three_join", plans["three_join"], three_join_n, 45, True, None)
     runs[f"comorbidity n={big_n}"] = ("comorbidity", plans["comorbidity"], big_n, 46, True, None)
 
+    hops: list = []
+    gather_hop = shuffle.gather_hop
+
+    def recorded_hop(cols, index):
+        hops.append((index.shape[0], cols[0].shape[0], tuple(c.shape[2] for c in cols)))
+        return gather_hop(cols, index)
+
+    shuffle.gather_hop = recorded_hop
+    try:
+        results, outputs = _full_runs(dev, runs, data, hops, n)
+    finally:
+        shuffle.gather_hop = gather_hop
+    for query in ("dosage_study", "comorbidity"):
+        (fout, frep), (gout, grep) = outputs[query], outputs[f"{query} gates"]
+        check(ledger_rows(frep) == ledger_rows(grep), f"{query}: fused and gate-by-gate ledgers or S differ")
+        check(same_outputs(fout, gout), f"{query}: fused and gate-by-gate output shares differ")
+        print(f"  {query}: output shares, per-node ledger and every S identical fused and gate by gate")
+    return results
+
+
+def _full_runs(dev, runs: dict, data: dict, hops: list, n: int) -> tuple:
+    """Each run of ``full_phase``, with ``hops`` filled by the recording
+    ``gather_hop``; returns the results and the outputs at ``n`` rows of
+    the runs compared fused and gate by gate."""
+    import torch
+
+    from repro_torch import RuntimeConfig
+    from repro_torch.core import threefry
+    from repro_torch.data import plaintext_oracle, revealed_answer
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.shuffle_gather import uses_two_pass
+
     results, outputs = {}, {}
     for name, (query, plan, rows, key, fuse, want) in runs.items():
         if want is None:
@@ -538,6 +639,7 @@ def full_phase(dev, n: int, three_join_n: int, big_n: int) -> dict:
         placed = with_resizers(plan)
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
+        hops.clear()
         reset_launch_counts()
         t0 = time.perf_counter()
         out, report = engine.execute(placed)
@@ -545,6 +647,7 @@ def full_phase(dev, n: int, three_join_n: int, big_n: int) -> dict:
         seconds = time.perf_counter() - t0
         launches = launch_counts()
         reset_launch_counts()
+        run_hops = list(hops)
         peak = torch.cuda.max_memory_allocated(dev)
         got = revealed_answer(query, placed, out)
         print(f"  {name} (n={rows}, {'fused' if fuse else 'gate by gate'}): {seconds:.3f} s, "
@@ -553,6 +656,14 @@ def full_phase(dev, n: int, three_join_n: int, big_n: int) -> dict:
             print("    " + line)
         check(got == want, f"{name}: the result {got} differs from the plaintext oracle {want}")
         check_launches(name, launches, query, fuse)
+        two_pass = sum(uses_two_pass(h[0], max(h[2])) for h in run_hops)
+        passes = len(run_hops) + two_pass
+        if run_hops:
+            top = max(run_hops, key=lambda h: h[0] * h[1] * sum(h[2]))
+            print(f"  {name}: {len(run_hops)} shuffle hops ({two_pass} two-pass), the largest {top[0]} rows x "
+                  f"{top[1]} planes x widths {top[2]}; shuffle_gather launches {launches.get('shuffle_gather', 0)}")
+        check(launches.get("shuffle_gather", 0) == passes and launches.get("shuffle_plan", 0) == two_pass,
+              f"{name}: {len(run_hops)} hops ({two_pass} two-pass) but launches {launches}")
         size = 0 if got is None else 1 if isinstance(got, int) else len(got)
         print(f"  {name}: " + (f"{got}" if size <= 10 else f"{size} rows") + " equals the plaintext oracle")
         results[name] = {
@@ -563,16 +674,12 @@ def full_phase(dev, n: int, three_join_n: int, big_n: int) -> dict:
             "peak_bytes": peak,
             "launches": launches,
             "nodes": node_rows(report),
+            "hops": [[h[0], h[1], list(h[2])] for h in run_hops],
             "result": got if isinstance(got, int) else size,
         }
         if name.startswith(("dosage_study", "comorbidity")) and rows == n:
             outputs[name] = (out, report)
-    for query in ("dosage_study", "comorbidity"):
-        (fout, frep), (gout, grep) = outputs[query], outputs[f"{query} gates"]
-        check(ledger_rows(frep) == ledger_rows(grep), f"{query}: fused and gate-by-gate ledgers or S differ")
-        check(same_outputs(fout, gout), f"{query}: fused and gate-by-gate output shares differ")
-        print(f"  {query}: output shares, per-node ledger and every S identical fused and gate by gate")
-    return results
+    return results, outputs
 
 
 # ---------------------------------------------------------------------------
@@ -584,11 +691,10 @@ def timing_phase(dev, shapes: dict) -> dict:
     import torch
 
     from repro_torch.kernels.rss_gate import gate, gate_plain
-    from repro_torch.kernels.shuffle_gather import shuffle_gather, shuffle_gather_plain
 
     rng = np.random.default_rng(1)
     out = {}
-    gate_lanes, gather_rows = shapes["gate_lanes"], shapes["join_rows"]
+    gate_lanes = shapes["gate_lanes"]
 
     rows = []
     for boolean in (True, False):
@@ -608,25 +714,91 @@ def timing_phase(dev, shapes: dict) -> dict:
                   f"bound {bound_ms:.4f} ms ({by})")
     out["rss_gate"] = rows
 
-    rows = []
-    for n, c in sorted({(gather_rows, 1), (1 << 21, 1)}):
-        planes = words(rng, (3, n, c), dev)
-        perm = torch.randperm(n, device=dev)
-        err = max_abs_err(shuffle_gather(planes, perm), shuffle_gather_plain(planes, perm))
-        check(err == 0, f"shuffle_gather ({n}, {c}) differs from its plain version")
-        ms = median_ms(lambda: shuffle_gather(planes, perm))
-        plain_ms = median_ms(lambda: shuffle_gather_plain(planes, perm))
-        library_ms = median_ms(lambda: torch.index_select(planes, 1, perm))
-        bytes_moved = 2 * 3 * n * c * 4 + 8 * n  # every word read and written once, plus the index
-        bound_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
-        rows.append({"n": n, "c": c, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "bound_ms": bound_ms, "bound_by": "bytes", "max_abs_err": err})
-        print(f"  shuffle_gather (N, C)=({n}, {c}): {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-              f"index_select {library_ms:.4f} ms  bound {bound_ms:.4f} ms (bytes)")
-    out["shuffle_gather"] = rows
+    out.update(time_gather(dev, rng, shapes))
     out.update(time_fused(dev, rng, shapes))
     out.update(time_bitonic(dev, rng, shapes))
     return out
+
+
+def gather_cost(n: int, planes: int, widths) -> tuple:
+    """(bound bytes, one-pass sector bytes) of a hop over ``n`` rows: every
+    word read and written once and the int32 index read once; and what a
+    one-pass gather moves when each scattered 4-byte read costs a 32-byte
+    sector."""
+    w = planes * sum(widths)
+    return (2 * 4 * w + 4) * n, (32 + 4) * w * n + 4 * n
+
+
+def time_gather(dev, rng, shapes: dict) -> dict:
+    """The hop gather at the largest hop the full-size runs recorded and at
+    one one-word column over the largest product join's rows (the shape the
+    one-launch-per-column gather was timed at): ``gather_hop`` (its own route), the direct route, the two-pass
+    plan alone, the plain gather, and ``torch.index_select`` summed over the
+    hop's columns (the library time). Then the measurements behind the size
+    rule: both routes over hops of two one-word columns around the L2, and
+    the two-pass route's chunk size at the largest hop."""
+    import torch
+
+    from repro_torch.kernels.shuffle_gather import (
+        gather_direct,
+        gather_hop,
+        gather_plan,
+        gather_two_pass,
+        shuffle_gather_plain,
+        uses_two_pass,
+    )
+    from repro_torch.kernels.shuffle_gather.ops import block_rows_for
+
+    hop_n, planes, widths = shapes["hop"]
+    rows = []
+    for n, ws in sorted({(hop_n, widths), (shapes["join_rows"], (1,))}):
+        cols = [words(rng, (planes, n, w), dev) for w in ws]
+        index = torch.randperm(n, device=dev)
+        want = [shuffle_gather_plain(c, index) for c in cols]
+        err = max(max_abs_err(a, b) for route in (gather_hop, gather_direct)
+                  for a, b in zip(route(cols, index), want))
+        check(err == 0, f"gather_hop N={n} widths={ws} differs from the plain gather")
+        del want
+        ms = median_ms(lambda: gather_hop(cols, index))
+        direct_ms = median_ms(lambda: gather_direct(cols, index))
+        plan_ms = median_ms(lambda: gather_plan(index, block_rows_for(n), block_rows_for(n)))
+        plain_ms = median_ms(lambda: [shuffle_gather_plain(c, index) for c in cols])
+        library_ms = median_ms(lambda: [torch.index_select(c, 1, index) for c in cols])
+        bound_bytes, sector_bytes = gather_cost(n, planes, ws)
+        bound_ms = 1e3 * bound_bytes / HBM_BYTES_PER_S
+        sector_ms = 1e3 * sector_bytes / HBM_BYTES_PER_S
+        route = "two-pass" if uses_two_pass(n, max(ws)) else "direct"
+        rows.append({"n": n, "planes": planes, "widths": list(ws), "route": route, "bytes": bound_bytes,
+                     "ms": ms, "direct_ms": direct_ms, "plan_ms": plan_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                     "one_pass_sector_ms": sector_ms, "max_abs_err": err})
+        print(f"  shuffle_gather hop N={n} planes={planes} widths={ws} ({route}): {ms:.4f} ms "
+              f"({ms / len(ws):.4f} per column)  direct {direct_ms:.4f} ms  plan {plan_ms:.4f} ms  "
+              f"plain {plain_ms:.4f} ms  index_select {library_ms:.4f} ms  bound {bound_ms:.4f} ms (bytes), "
+              f"{100 * bound_ms / ms:.1f} % of it; one-pass sector cost {sector_ms:.4f} ms")
+        if n == hop_n and ws == widths:
+            sizes = []
+            for chunk_rows, tile_rows in ((32768, 32768), (16384, 32768), (32768, 16384), (16384, 16384)):
+                cms = median_ms(lambda: gather_two_pass(cols, index, chunk_rows=chunk_rows, tile_rows=tile_rows))
+                sizes.append({"chunk_rows": chunk_rows, "tile_rows": tile_rows, "ms": cms})
+                print(f"    two-pass, chunks of {chunk_rows} rows, tiles of {tile_rows}: {cms:.4f} ms")
+            rows[-1]["block_sweep"] = sizes
+        del cols, index
+    sweep = []
+    for n in SIZE_RULE_ROWS:
+        cols = [words(rng, (3, n, 1), dev) for _ in range(2)]
+        index = torch.randperm(n, device=dev)
+        direct_ms = median_ms(lambda: gather_direct(cols, index))
+        two_ms = median_ms(lambda: gather_two_pass(cols, index))
+        library_ms = median_ms(lambda: [torch.index_select(c, 1, index) for c in cols])
+        sweep.append({"n": n, "mib": 24 * n / 2**20, "direct_ms": direct_ms, "two_pass_ms": two_ms,
+                      "library_ms": library_ms})
+        print(f"    size rule: N={n:>8} x 6 words ({24 * n / 2**20:6.1f} MiB, {4 * n / 2**20:4.1f} MiB a plane): "
+              f"direct {direct_ms:.4f} ms  "
+              f"two-pass {two_ms:.4f} ms  index_select {library_ms:.4f} ms  "
+              f"({'two-pass' if uses_two_pass(n, 1) else 'direct'} chosen)")
+        del cols, index
+    return {"shuffle_gather": rows, "shuffle_gather_size_rule": sweep}
 
 
 def fused_cost(name: str, n: int, levels: int) -> tuple:
@@ -790,14 +962,16 @@ def _profile_window(label: str, fn) -> dict:
             "top": [{"name": n, "count": c, "ms": m} for n, c, m in top]}
 
 
-def profile_phase(dev, distinct_rows: int) -> dict:
+def profile_phase(dev, distinct_rows: int, hop: tuple) -> dict:
     import numpy as np
+    import torch
 
     from repro_torch.core import threefry
     from repro_torch.core.prf import setup_prf
     from repro_torch.core.sharing import BShare
     from repro_torch.core.sort import _stage
     from repro_torch.kernels import override_fusion
+    from repro_torch.kernels.shuffle_gather import gather_hop
     from repro_torch.ops import SecretTable
     from repro_torch.ops.join import oblivious_join
 
@@ -810,6 +984,9 @@ def profile_phase(dev, distinct_rows: int) -> dict:
     side = {"pid": rng.integers(0, 64, 256).astype(np.uint32)}
     left = SecretTable.from_plaintext(side, threefry.PRNGKey(4), device=dev)
     right = SecretTable.from_plaintext(side, threefry.PRNGKey(5), device=dev)
+    # the largest shuffle hop of the full-size runs
+    cols = [words(rng, (hop[1], hop[0], w), dev) for w in hop[2]]
+    index = torch.randperm(hop[0], device=dev)
 
     def stage(fuse: bool):
         with override_fusion(fuse):
@@ -823,6 +1000,9 @@ def profile_phase(dev, distinct_rows: int) -> dict:
         "join_tile": _profile_window(
             "one join tile, 65536 product rows, fused",
             lambda: oblivious_join(left, right, ("pid", "pid"), prf)),
+        "gather_hop": _profile_window(
+            f"one shuffle hop, {hop[0]} rows x {hop[1]} planes x widths {hop[2]}",
+            lambda: gather_hop(cols, index)),
     }
 
 
@@ -836,7 +1016,11 @@ def largest_shapes(full: dict) -> dict:
         return 1 << max(k - 1, 0).bit_length()
 
     sort_rows = join_rows = resize_rows = count_rows = distinct_rows = 1
+    hop = (1, 3, (1,))
     for res in full.values():
+        for n, planes, widths in res["hops"]:
+            if n * planes * sum(widths) > hop[0] * hop[1] * sum(hop[2]):
+                hop = (n, planes, tuple(widths))
         for node in res["nodes"]:
             name, n_in = node["node"], node["n_ins"][0] if node["n_ins"] else 0
             if name.startswith("Distinct"):
@@ -854,13 +1038,14 @@ def largest_shapes(full: dict) -> dict:
     # narrowed network carries two columns, the key and the row index, and
     # rss_gate's largest call is the gate-by-gate select over them
     return {"gate_lanes": 2 * sort_rows, "sort_rows": sort_rows, "sort_cols": 2, "join_rows": join_rows,
-            "resize_rows": resize_rows, "count_rows": count_rows, "distinct_rows": distinct_rows}
+            "resize_rows": resize_rows, "count_rows": count_rows, "distinct_rows": distinct_rows, "hop": hop}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one Distinct stage and one join tile with torch.profiler")
+                    help="also trace one Distinct stage, one join tile and the largest shuffle hop "
+                         "with torch.profiler")
     ap.add_argument("--out", help="write the run's details as JSON to this path")
     args = ap.parse_args(argv)
 
@@ -893,6 +1078,12 @@ def main(argv=None) -> int:
           f"comorbidity also at n={BIG_ROWS})")
     full = full_phase(dev, ROWS_PER_TABLE, THREE_JOIN_ROWS, BIG_ROWS)
 
+    gathers = sum(r["launches"].get("shuffle_gather", 0) for r in full.values())
+    plans = sum(r["launches"].get("shuffle_plan", 0) for r in full.values())
+    hops = sum(len(r["hops"]) for r in full.values())
+    per_column = sum(len(h[2]) for r in full.values() for h in r["hops"])
+    print(f"  shuffle_gather launches over the {len(full)} full-size runs: {gathers} for {hops} hops, {plans} of "
+          f"them two-pass (shuffle_plan launches); one launch per column per hop would be {per_column}")
     shapes = largest_shapes(full)
     print(f"[4] kernel timing at the run's shapes {shapes}")
     timing = timing_phase(dev, shapes)
@@ -900,7 +1091,7 @@ def main(argv=None) -> int:
     profiled = None
     if args.profile:
         print("[5] device-time breakdown (torch.profiler)")
-        profiled = profile_phase(dev, shapes["distinct_rows"])
+        profiled = profile_phase(dev, shapes["distinct_rows"], shapes["hop"])
 
     launches = {k: sum(r["launches"].get(k, 0) for r in full.values()) for k in KERNELS}
     summary = {"kernels": []}

@@ -6,8 +6,11 @@ party receives freshly re-randomized shares. 3 rounds; each hop moves the
 whole table once. See ``repro.core.shuffle``: permutations, re-randomization
 tags (5000 / 5500 + 17·hop + column) and ledger entries are the same.
 
-Each hop's row gather of a column's three share planes is one
-``shuffle_gather`` launch on a CUDA tensor (the plain gather on the CPU).
+Each hop moves every column's three share planes by one index in one
+``gather_hop`` call (on a CUDA tensor one launch, or with a plane above
+22 MiB a plan and two passes; the plain gather on the CPU); each column is
+then re-randomized with its own tag. The inverse hop's index is the hop
+permutation inverted by a scatter.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from typing import Dict, Union
 
 import torch
 
-from ..kernels.shuffle_gather import shuffle_gather
+from ..kernels.shuffle_gather import gather_hop
 from . import threefry
 from .ledger import fused_scope, log_comm
 from .prf import PRFSetup, zero_share_add, zero_share_xor
@@ -49,12 +52,26 @@ def composed_permutation(prf: PRFSetup, n: int, device) -> torch.Tensor:
     return pi
 
 
-def _gather_rows(col: Share, perm: torch.Tensor) -> Share:
-    """One hop's row move of a column: its (3, N, ...) shares as three
-    (N, C) planes gathered by ``perm`` in one kernel launch."""
-    s = col.shares
-    planes = s.reshape(3, s.shape[1], -1).contiguous()
-    return type(col)(shuffle_gather(planes, perm).reshape(s.shape))
+def _inverse(perm: torch.Tensor) -> torch.Tensor:
+    """The inverse of a permutation, by one scatter: ``inv[perm] = arange``
+    (the same as ``argsort(perm)``, without the sort)."""
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype, device=perm.device)
+    return inv
+
+
+def _hop(cols: Dict[str, Share], perm: torch.Tensor, prf: PRFSetup, tag: int) -> Dict[str, Share]:
+    """One hop of a table: every column's (3, N, ...) shares as (3, N, W)
+    planes, gathered by ``perm`` in one ``gather_hop`` call, then column i
+    re-randomized with tag ``tag + i``. Each gathered column is dropped as
+    soon as its re-randomized copy exists."""
+    planes = [c.shares.reshape(3, c.shares.shape[1], -1) for c in cols.values()]
+    moved = gather_hop(planes, perm)
+    out = {}
+    for idx, (name, c) in enumerate(cols.items()):
+        out[name] = _rerandomize(type(c)(moved[idx].reshape(c.shares.shape)), prf, tag + idx)
+        moved[idx] = None
+    return out
 
 
 def _rerandomize(col: Share, prf: PRFSetup, tag: int) -> Share:
@@ -78,11 +95,7 @@ def secure_shuffle(cols: Dict[str, Share], prf: PRFSetup) -> Dict[str, Share]:
     with fused_scope("shuffle", rounds=HOPS):
         out = dict(cols)
         for hop in range(HOPS):
-            perm = _hop_perm(prf, hop, n, device)
-            out = {
-                name: _rerandomize(_gather_rows(col, perm), prf, 5000 + 17 * hop + idx)
-                for idx, (name, col) in enumerate(out.items())
-            }
+            out = _hop(out, _hop_perm(prf, hop, n, device), prf, 5000 + 17 * hop)
             # one resharing hop: the pi_j-ignorant party receives fresh shares
             log_comm("shuffle_hop", 1, n * row_bytes)
     return out
@@ -99,11 +112,7 @@ def inverse_shuffle(cols: Dict[str, Share], prf: PRFSetup) -> Dict[str, Share]:
     with fused_scope("shuffle", rounds=HOPS):
         out = dict(cols)
         for hop in reversed(range(HOPS)):
-            perm = torch.argsort(_hop_perm(prf, hop, n, device))
-            out = {
-                name: _rerandomize(_gather_rows(col, perm), prf, 5500 + 17 * hop + idx)
-                for idx, (name, col) in enumerate(out.items())
-            }
+            out = _hop(out, _inverse(_hop_perm(prf, hop, n, device)), prf, 5500 + 17 * hop)
             log_comm("shuffle_hop", 1, n * row_bytes)
     return out
 

@@ -2,7 +2,10 @@
 
 * ``rss_gate``       — the 1-round RSS multiplication / AND gate (every
                        gate outside a fused circuit);
-* ``shuffle_gather`` — the row gather of each secure-shuffle hop;
+* ``shuffle_gather`` — the row gather of each secure-shuffle hop, every
+                       column at once (``gather_hop``: one direct launch,
+                       or above the L2 a plan and two passes through
+                       shared memory);
 * ``ks_prefix``      — every Kogge-Stone level of a comparison or adder in
                        one launch, and ``and_fold``, the equality AND tree;
 * ``a2b_fused``      — the whole arithmetic -> boolean conversion (two
@@ -18,7 +21,7 @@ Each kernel is a CUDA C++ source in ``csrc/`` with a plain C entry point.
 ``sm_90a``, all started together, linked into one shared library — from the
 checkout's sources alone into ``kernels/_build/`` (ignored by git), and loads
 it with ``ctypes``. Each wrapper (``rss_gate.gate``,
-``shuffle_gather.shuffle_gather``, ``ks_prefix.ks_prefix`` / ``and_fold``,
+``shuffle_gather.gather_hop``, ``ks_prefix.ks_prefix`` / ``and_fold``,
 ``a2b_fused.a2b_kernel`` / ``bit2a_kernel``, ``bitonic_stage.stage_swap``)
 launches its kernel for a CUDA tensor and runs its plain PyTorch version for
 a CPU tensor; it records one launch in :func:`launch_counts` where it
@@ -171,8 +174,18 @@ def library() -> ctypes.CDLL:
             vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.rss_gate_launch.argtypes = [vp, vp, vp, vp, i64, i32, vp]
             lib.rss_gate_launch.restype = i32
-            lib.shuffle_gather_launch.argtypes = [vp, vp, vp, i32, i64, i64, vp]
-            lib.shuffle_gather_launch.restype = i32
+            # (cols, ncols, planes, index, n, stream)
+            lib.gather_direct_launch.argtypes = [vp, i32, i32, vp, i64, vp]
+            # (index, n, chunk_rows, tile_rows, n_chunks, n_tiles, counts, starts, packed, stream)
+            lib.gather_plan_launch.argtypes = [vp, i64, i32, i32, i32, i32, vp, vp, vp, vp]
+            # (cols, ncols, planes, packed, counts, starts, n, chunk_rows, n_chunks, tile_rows,
+            #  n_tiles, stream)
+            lib.gather_pass1_launch.argtypes = [vp, i32, i32, vp, vp, vp, i64, i32, i32, i32, i32, vp]
+            # (cols, ncols, planes, packed, n, chunk_rows, stream)
+            lib.gather_pass2_launch.argtypes = [vp, i32, i32, vp, i64, i32, vp]
+            for fn in ("gather_direct_launch", "gather_plan_launch", "gather_pass1_launch",
+                       "gather_pass2_launch"):
+                getattr(lib, fn).restype = i32
             # (g, p, alpha, out, n, shifts, n_shifts, stream)
             lib.ks_prefix_launch.argtypes = [vp, vp, vp, vp, i64, vp, i32, vp]
             lib.ks_prefix_launch.restype = i32

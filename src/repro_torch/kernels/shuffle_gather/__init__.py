@@ -1,3 +1,25 @@
-from .ops import shuffle_gather, shuffle_gather_plain
+from .ops import (
+    GatherPlan,
+    gather_direct,
+    gather_hop,
+    gather_plan,
+    gather_plan_plain,
+    gather_two_pass,
+    gather_two_pass_plain,
+    shuffle_gather,
+    shuffle_gather_plain,
+    uses_two_pass,
+)
 
-__all__ = ["shuffle_gather", "shuffle_gather_plain"]
+__all__ = [
+    "GatherPlan",
+    "gather_direct",
+    "gather_hop",
+    "gather_plan",
+    "gather_plan_plain",
+    "gather_two_pass",
+    "gather_two_pass_plain",
+    "shuffle_gather",
+    "shuffle_gather_plain",
+    "uses_two_pass",
+]

@@ -22,7 +22,15 @@ from repro_torch.kernels.ks_prefix import (
     ks_shifts,
 )
 from repro_torch.kernels.rss_gate import gate, gate_plain
-from repro_torch.kernels.shuffle_gather import shuffle_gather, shuffle_gather_plain
+from repro_torch.kernels.shuffle_gather import (
+    gather_direct,
+    gather_hop,
+    gather_plan,
+    gather_plan_plain,
+    gather_two_pass,
+    shuffle_gather,
+    shuffle_gather_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -231,3 +239,111 @@ def test_sort_on_cuda_equals_cpu(cuda):
         assert (launch_counts().get("bitonic_swap", 0) > 0) == fused
         for name in cols:
             assert torch.equal(got[name].shares.cpu(), want[name].shares), name
+
+
+# the hop gather: mixed widths in one hop, a permutation per case
+def _hop(rng, n, widths, device):
+    cols = [_words(rng, (3, n, w), device) for w in widths]
+    return cols, torch.from_numpy(rng.permutation(n)).to(device)
+
+
+def _assert_equals_plain(got, cols, index):
+    torch.cuda.synchronize()
+    for out, col in zip(got, cols):
+        assert out.is_contiguous()
+        assert torch.equal(out, shuffle_gather_plain(col, index))
+
+
+def test_gather_hop_direct_route_equals_plain(cuda):
+    # 2^20 rows x 3 words = 12 MiB a plane: the direct route's own size
+    rng = np.random.default_rng(20)
+    cols, index = _hop(rng, 1 << 20, (1, 3, 1, 1), cuda)
+    reset_launch_counts()
+    got = gather_direct(cols, index)
+    _assert_equals_plain(got, cols, index)
+    assert launch_counts() == {"shuffle_gather": 1}
+    # gather_hop takes the direct route by itself at this size
+    small, sindex = _hop(rng, 1 << 20, (1,), cuda)
+    reset_launch_counts()
+    _assert_equals_plain(gather_hop(small, sindex), small, sindex)
+    assert launch_counts() == {"shuffle_gather": 1}
+
+
+@pytest.mark.parametrize("widths", [(1, 1), (1, 3, 1, 2, 1, 1)])
+def test_gather_hop_two_pass_route_equals_plain(cuda, widths):
+    rng = np.random.default_rng(len(widths))
+    cols, index = _hop(rng, (1 << 24) + 3, widths, cuda)
+    reset_launch_counts()
+    got = gather_hop(cols, index)
+    _assert_equals_plain(got, cols, index)
+    assert launch_counts() == {"shuffle_plan": 1, "shuffle_gather": 2}
+
+
+@pytest.mark.parametrize("n,chunk_rows,tile_rows", [(1, 1, 1), (4099, 1000, 64), (1_000_003, 20_000, 2048)])
+def test_gather_plan_kernel_equals_plain(cuda, n, chunk_rows, tile_rows):
+    # counts and starts exactly; each bucket's slots hold the same rows (their
+    # order inside a bucket follows the kernel's atomics)
+    rng = np.random.default_rng(n)
+    index = torch.from_numpy(rng.permutation(n)).to(cuda)
+    index[n // 2] = -5
+    got = gather_plan(index, chunk_rows, tile_rows)
+    want = gather_plan_plain(index, chunk_rows, tile_rows)
+    for name in ("counts", "start"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    bucket = torch.repeat_interleave(torch.arange(want.counts.numel(), device=cuda), want.counts.view(-1).long())
+    key = lambda plan: torch.sort(bucket * 2**32 + plan.packed.long()).values  # noqa: E731
+    assert torch.equal(key(got), key(want))
+
+
+@pytest.mark.parametrize("route", ["direct", "two_pass"])
+def test_gather_hop_unaligned_and_strided_planes(cuda, route):
+    # a column one word into its storage, and columns sliced from a stacked one
+    rng = np.random.default_rng(21)
+    n = 300_001
+    shifted = _words(rng, (3 * n * 2 + 1,), cuda)[1:].view(3, n, 2)
+    stacked = _words(rng, (3, n, 3), cuda)
+    cols = [shifted, stacked[:, :, 0:1], stacked[:, :, 1:3]]
+    index = torch.from_numpy(rng.permutation(n)).to(cuda)
+    if route == "direct":
+        got = gather_direct(cols, index)
+    else:
+        got = gather_two_pass(cols, index, chunk_rows=20_000, tile_rows=512)
+    _assert_equals_plain(got, cols, index)
+
+
+@pytest.mark.parametrize("route", ["direct", "two_pass"])
+def test_gather_hop_out_of_range_rows_equal_plain(cuda, route):
+    rng = np.random.default_rng(22)
+    n = 200_000
+    cols, index = _hop(rng, n, (1, 2), cuda)
+    bad = torch.tensor([0, 7, n // 2, n - 1], device=cuda)
+    index[bad] = torch.tensor([-1, n, 2**40, -(2**40)], device=cuda)
+    if route == "direct":
+        got = gather_direct(cols, index)
+    else:
+        got = gather_two_pass(cols, index, chunk_rows=30_000, tile_rows=1024)
+    _assert_equals_plain(got, cols, index)
+    assert not any(out[:, bad].any() for out in got)
+
+
+def test_shuffle_round_trip_on_cuda_equals_cpu(cuda):
+    # secure_shuffle then inverse_shuffle over 6 M rows and two columns
+    # (23 MiB a plane: the two-pass route) gives the same shares on both devices
+    from repro_torch.core import threefry
+    from repro_torch.core.prf import setup_prf
+    from repro_torch.core.sharing import AShare, BShare
+    from repro_torch.core.shuffle import inverse_shuffle, secure_shuffle
+
+    rng = np.random.default_rng(23)
+    n = 6_000_000
+    host = {"k": BShare(_words(rng, (3, n), "cpu")), "v": AShare(_words(rng, (3, n), "cpu"))}
+    prf = setup_prf(threefry.PRNGKey(9))
+    want = inverse_shuffle(secure_shuffle(host, prf), prf.fold(1))
+    reset_launch_counts()
+    got = inverse_shuffle(secure_shuffle({k: type(v)(v.shares.to(cuda)) for k, v in host.items()}, prf),
+                          prf.fold(1))
+    torch.cuda.synchronize()
+    assert launch_counts() == {"shuffle_plan": 6, "shuffle_gather": 12}
+    for name in host:
+        assert type(got[name]) is type(want[name])
+        assert torch.equal(got[name].shares.cpu(), want[name].shares), name

@@ -18,10 +18,12 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
    planes and with indices out of range; the fused kernels and
    ``bitonic_swap`` at ragged lane counts and on unaligned planes, the fused
    kernels at the widths the path uses, and ``bit2a`` on a 2-D lane shape);
-2. cross-device: the quickstart plan, ``comorbidity`` and
-   ``diag_breakdown`` (n=48) on the default fused path on ``cuda`` and on
-   ``cpu`` give identical output shares, per-node (rounds, bytes/party) and
-   Resize sizes S, and on ``cuda`` the gate-by-gate path
+2. cross-device: the quickstart plan, ``comorbidity``, ``diag_breakdown``,
+   and ``dosage_study`` and ``three_join`` compiled from SQL by the port's
+   ``compile_query`` with the sort-merge join forced (n=48, over a catalog
+   that declares each table's pid bound) on the default fused path on
+   ``cuda`` and on ``cpu`` give identical output shares, per-node (rounds,
+   bytes/party) and Resize sizes S, and on ``cuda`` the gate-by-gate path
    (``fuse_circuits=False``) gives the same again;
 3. full size over ``generate_healthlnk(n)`` with Beta(2,6) Resizers on every
    internal operator: ``aspirin_count`` (theta join, COUNT(DISTINCT)) on the
@@ -30,13 +32,21 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
    shares, ledgers and S), the quickstart plan, the ten dialect goldens
    (Project, SUM, AVG, MIN, MAX, OR, composite-key GroupBy, GroupBy SUM and
    AVG, HAVING), ``three_join`` at a reduced n (its later product joins grow
-   as n^3 and n^4), and ``comorbidity`` once more over a 1,048,576-row
-   diagnoses table. Launch counts are reset before each run and read after
-   it; every kernel of that run's path must have launched, the gather once
-   per shuffle hop (twice, after its plan, on a two-pass hop), and every
-   answer must equal the plaintext oracle. Per-node seconds, S, peak memory,
-   launch counts and each run's shuffle hops (rows, planes, column widths)
-   are printed;
+   as n^3 and n^4), ``comorbidity`` once more over a 1,048,576-row
+   diagnoses table, and ``dosage_study``, ``aspirin_count`` and
+   ``three_join`` (uncut) compiled from SQL with the sort-merge join forced.
+   Launch counts are reset before each run and read after it; every kernel
+   of that run's path must have launched, the gather once per shuffle hop
+   (twice, after its plan, on a two-pass hop), and every answer must equal
+   the plaintext oracle (the sort-merge ``dosage_study`` and
+   ``aspirin_count`` also their product runs'). Per-node seconds, S, peak
+   memory, launch counts, each run's shuffle hops (rows, planes, column
+   widths) and each sort-merge join's fanout, build side and union rows are
+   printed, and which algorithm ``join_algo="auto"`` picks for each join of
+   the three. Then the SQL front end's ``--check`` runs in-process on
+   ``cuda``: the fourteen goldens compile to their hand plans, the ten
+   dialect goldens execute to the oracle's answers, and the sort-merge
+   ``dosage_study`` equals the product run and the oracle;
 4. timing: each kernel's median time at the shapes the full-size run gave
    it, beside its plain version, the one-call library equivalent (where one
    exists) and the least time the card could take (``bound_ms``); for
@@ -126,7 +136,13 @@ PATH_KERNELS = {
     "med_dosage_sum": _BASE + ("shuffle_gather", "bit2a_fused", "bitonic_swap"),
     "med_dosage_avg": _BASE + ("shuffle_gather", "bit2a_fused", "bitonic_swap"),
     "repeat_diagnoses": _RESIZED + ("bit2a_fused", "bitonic_swap"),
+    # the sort-merge join at fanout > 1: the union sort (bitonic_swap), the
+    # rank (bit2a_fused, a2b_fused) and the payload's gather (shuffle_gather)
+    "sortmerge": _RESIZED + ("bit2a_fused", "bitonic_swap"),
 }
+# the goldens with joins that phases 2 and 3 also compile from SQL with the
+# sort-merge join forced
+SORTMERGE_GOLDENS = ("dosage_study", "aspirin_count", "three_join")
 # the goldens the full-size phase runs beyond the earlier slices' four
 NEW_GOLDENS = ("comorbidity", "projection_join", "dosage_sum", "dosage_avg", "dosage_min", "dosage_max",
                "heart_or_circulatory", "diag_breakdown", "med_dosage_sum", "med_dosage_avg", "repeat_diagnoses")
@@ -449,6 +465,48 @@ def with_resizers(plan):
     )
 
 
+def sortmerge_plan(query: str, tables: dict, plain: dict, join_algo: str = "sortmerge"):
+    """``query`` compiled from its SQL by the port's ``compile_query`` with
+    Beta(2,6) Resizers on every internal operator, over a catalog that
+    declares each table's observed pid bound (the sort-merge join needs a
+    declared bound on its build side's key)."""
+    import numpy as np
+
+    from repro_torch.core.noise import BetaNoise
+    from repro_torch.data import QUERY_SQL
+    from repro_torch.sql import Catalog, compile_query
+
+    mult = {t: {"pid": int(np.bincount(cols["pid"]).max())} for t, cols in plain.items()}
+    catalog = Catalog.from_tables(tables, multiplicity=mult)
+    return compile_query(QUERY_SQL[query], catalog, placement="all_internal", noise=BetaNoise(2, 6),
+                         join_algo=join_algo)
+
+
+def post_order(plan):
+    """The plan's nodes in the order the engine reports them."""
+    for c in plan.children():
+        yield from post_order(c)
+    yield plan
+
+
+def join_rows(plan, report) -> list:
+    """Each join of an executed plan: its algorithm, rows in and out, and for
+    a sort-merge join its fanout, build side and union rows."""
+    from repro_torch.plan import Join, JoinSortMerge
+
+    rows = []
+    for node, stats in zip(post_order(plan), report.nodes):
+        if not isinstance(node, Join):
+            continue
+        row = {"algo": "sortmerge" if isinstance(node, JoinSortMerge) else "product", "n_ins": stats.n_ins,
+               "n_out": stats.n_out, "seconds": stats.seconds}
+        if isinstance(node, JoinSortMerge):
+            union = 1 << max(sum(stats.n_ins) - 1, 0).bit_length()
+            row.update(fanout=node.fanout, build=node.build, union_rows=union)
+        rows.append(row)
+    return rows
+
+
 def node_rows(report) -> list:
     return [
         {
@@ -489,7 +547,8 @@ def ledger_rows(report) -> list:
 def three_ways(dev, label: str, make_tables, plan, key: int, query: str):
     """One plan fused on ``cuda``, fused on ``cpu`` and gate by gate on
     ``cuda``: identical shares, per-node ledgers and S, and the launches of
-    each path. Returns the cuda fused run's (output, report)."""
+    each path (``query`` names its entry in ``PATH_KERNELS``). Returns the
+    cuda fused run's (output, report)."""
     import torch
 
     from repro_torch import RuntimeConfig
@@ -559,6 +618,19 @@ def cross_device_phase(dev) -> None:
         print(f"  {query} n={n}: shares, ledgers and S={sizes} identical on cuda and cpu (fused) and "
               f"on cuda gate by gate; {len(got)} groups equal the oracle")
 
+    # compiled from SQL with the sort-merge join forced
+    tables = generate_healthlnk(n=n, seed=0, device="cpu")[0]
+    for query in ("dosage_study", "three_join"):
+        plan = sortmerge_plan(query, tables, plain)
+        out, report = three_ways(dev, f"{query} sort-merge n={n}",
+                                 lambda d: generate_healthlnk(n=n, seed=0, device=d)[0], plan, 47, "sortmerge")
+        got = revealed_answer(query, plan, out)
+        check(got == plaintext_oracle(query, plain), f"{query} sort-merge n={n}: {got} differs from the oracle")
+        joins = [(j["fanout"], j["build"], j["union_rows"]) for j in join_rows(plan, report)]
+        sizes = [s.extra["s"] for s in report.nodes if "s" in s.extra]
+        print(f"  {query} sort-merge n={n}: joins (fanout, build, union rows) {joins}; shares, ledgers and "
+              f"S={sizes} identical on cuda and cpu (fused) and on cuda gate by gate; {got} equals the oracle")
+
 
 # ---------------------------------------------------------------------------
 # 3. full-size run
@@ -572,6 +644,7 @@ def full_phase(dev, n: int, three_join_n: int, big_n: int) -> dict:
     import torch
 
     import repro_torch.core.shuffle as shuffle
+    import repro_torch.ops.join_sortmerge as jsm
     from repro_torch.data import all_query_plans, generate_healthlnk
 
     data = {}
@@ -582,20 +655,25 @@ def full_phase(dev, n: int, three_join_n: int, big_n: int) -> dict:
         print(f"  generate_healthlnk(n={rows}): {time.perf_counter() - t0:.3f} s (set-up)")
     d, m = data[n][1]["diagnoses"], data[n][1]["medications"]
     quickstart_rows = sorted(int(p) for p in np.intersect1d(d["pid"][d["icd9"] == 414], m["pid"][m["med"] == 1]))
-    plans = all_query_plans()
-    # name -> (golden, plan, rows per table, engine key, fused, expected
-    # answer); the quickstart plan answers in dosage_study's form
+    plans = {name: with_resizers(plan) for name, plan in all_query_plans().items()}
+    # name -> (golden, plan with its Resizers, rows per table, engine key,
+    # fused, expected answer, PATH_KERNELS entry); the quickstart plan
+    # answers in dosage_study's form
     runs = {
-        "aspirin_count": ("aspirin_count", plans["aspirin_count"], n, 44, True, None),
-        "dosage_study": ("dosage_study", plans["dosage_study"], n, 42, True, None),
-        "dosage_study gates": ("dosage_study", plans["dosage_study"], n, 42, False, None),
-        "quickstart": ("dosage_study", quickstart_plan("pid"), n, 43, True, quickstart_rows),
-        "comorbidity gates": ("comorbidity", plans["comorbidity"], n, 46, False, None),
+        "aspirin_count": ("aspirin_count", plans["aspirin_count"], n, 44, True, None, "aspirin_count"),
+        "dosage_study": ("dosage_study", plans["dosage_study"], n, 42, True, None, "dosage_study"),
+        "dosage_study gates": ("dosage_study", plans["dosage_study"], n, 42, False, None, "dosage_study"),
+        "quickstart": ("dosage_study", with_resizers(quickstart_plan("pid")), n, 43, True, quickstart_rows,
+                       "dosage_study"),
+        "comorbidity gates": ("comorbidity", plans["comorbidity"], n, 46, False, None, "comorbidity"),
     }
     for i, query in enumerate(NEW_GOLDENS):
-        runs[query] = (query, plans[query], n, 46 + i, True, None)
-    runs["three_join"] = ("three_join", plans["three_join"], three_join_n, 45, True, None)
-    runs[f"comorbidity n={big_n}"] = ("comorbidity", plans["comorbidity"], big_n, 46, True, None)
+        runs[query] = (query, plans[query], n, 46 + i, True, None, query)
+    runs["three_join"] = ("three_join", plans["three_join"], three_join_n, 45, True, None, "three_join")
+    runs[f"comorbidity n={big_n}"] = ("comorbidity", plans["comorbidity"], big_n, 46, True, None, "comorbidity")
+    # compiled from SQL with the sort-merge join forced, three_join uncut
+    for query, key in zip(SORTMERGE_GOLDENS, (42, 44, 45)):
+        runs[f"{query} sort-merge"] = (query, sortmerge_plan(query, *data[n]), n, key, True, None, "sortmerge")
 
     hops: list = []
     gather_hop = shuffle.gather_hop
@@ -604,23 +682,52 @@ def full_phase(dev, n: int, three_join_n: int, big_n: int) -> dict:
         hops.append((index.shape[0], cols[0].shape[0], tuple(c.shape[2] for c in cols)))
         return gather_hop(cols, index)
 
+    # each sort-merge join's union sort and payload gather, timed in place
+    phases: list = []
+    sort, gather = jsm.bitonic_sort, jsm.apply_secret_perm
+
+    def timed(fn, part: str):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            if part == "sort_s":
+                phases.append({})
+            phases[-1][part] = time.perf_counter() - t0
+            return out
+
+        return run
+
     shuffle.gather_hop = recorded_hop
+    jsm.bitonic_sort, jsm.apply_secret_perm = timed(sort, "sort_s"), timed(gather, "gather_s")
     try:
-        results, outputs = _full_runs(dev, runs, data, hops, n)
+        results, outputs, answers = _full_runs(dev, runs, data, hops, phases, n)
     finally:
         shuffle.gather_hop = gather_hop
+        jsm.bitonic_sort, jsm.apply_secret_perm = sort, gather
     for query in ("dosage_study", "comorbidity"):
         (fout, frep), (gout, grep) = outputs[query], outputs[f"{query} gates"]
         check(ledger_rows(frep) == ledger_rows(grep), f"{query}: fused and gate-by-gate ledgers or S differ")
         check(same_outputs(fout, gout), f"{query}: fused and gate-by-gate output shares differ")
         print(f"  {query}: output shares, per-node ledger and every S identical fused and gate by gate")
+    for query in ("dosage_study", "aspirin_count"):
+        check(answers[f"{query} sort-merge"] == answers[query],
+              f"{query}: the sort-merge run's answer differs from the product run's")
+        print(f"  {query}: the sort-merge run's answer equals the product run's and the oracle")
+    for query in SORTMERGE_GOLDENS:
+        plan = sortmerge_plan(query, *data[n], join_algo="auto")
+        auto = [(type(j).__name__, getattr(j, "fanout", None), getattr(j, "build", None))
+                for j in post_order(plan) if type(j).__name__.startswith("Join")]
+        print(f"  {query}: join_algo=auto picks {auto} at n={n} with the declared pid bounds")
     return results
 
 
-def _full_runs(dev, runs: dict, data: dict, hops: list, n: int) -> tuple:
+def _full_runs(dev, runs: dict, data: dict, hops: list, phases: list, n: int) -> tuple:
     """Each run of ``full_phase``, with ``hops`` filled by the recording
-    ``gather_hop``; returns the results and the outputs at ``n`` rows of
-    the runs compared fused and gate by gate."""
+    ``gather_hop`` and ``phases`` by the timed union sort and payload gather
+    of each sort-merge join; returns the results, the outputs of the runs compared
+    fused and gate by gate, and every run's answer."""
     import torch
 
     from repro_torch import RuntimeConfig
@@ -630,16 +737,16 @@ def _full_runs(dev, runs: dict, data: dict, hops: list, n: int) -> tuple:
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.shuffle_gather import uses_two_pass
 
-    results, outputs = {}, {}
-    for name, (query, plan, rows, key, fuse, want) in runs.items():
+    results, outputs, answers = {}, {}, {}
+    for name, (query, placed, rows, key, fuse, want, path) in runs.items():
         if want is None:
             want = plaintext_oracle(query, data[rows][1])
         engine = Engine(data[rows][0], key=threefry.PRNGKey(key), config=RuntimeConfig(fuse_circuits=fuse),
                         device=dev)
-        placed = with_resizers(plan)
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
         hops.clear()
+        phases.clear()
         reset_launch_counts()
         t0 = time.perf_counter()
         out, report = engine.execute(placed)
@@ -655,7 +762,15 @@ def _full_runs(dev, runs: dict, data: dict, hops: list, n: int) -> tuple:
         for line in report.summary().splitlines():
             print("    " + line)
         check(got == want, f"{name}: the result {got} differs from the plaintext oracle {want}")
-        check_launches(name, launches, query, fuse)
+        answers[name] = got
+        check_launches(name, launches, path, fuse)
+        joins = join_rows(placed, report)
+        for j, times in zip([j for j in joins if j["algo"] == "sortmerge"], phases):
+            j.update(times)
+            print(f"    sort-merge join {'x'.join(map(str, j['n_ins']))} -> union {j['union_rows']} rows, "
+                  f"fanout {j['fanout']}, build {j['build']}: {j['n_out']} rows in {j['seconds']:.3f} s "
+                  f"(union sort {j['sort_s']:.3f} s, payload gather {j['gather_s']:.3f} s, the rest "
+                  f"{j['seconds'] - j['sort_s'] - j['gather_s']:.3f} s)")
         two_pass = sum(uses_two_pass(h[0], max(h[2])) for h in run_hops)
         passes = len(run_hops) + two_pass
         if run_hops:
@@ -675,11 +790,12 @@ def _full_runs(dev, runs: dict, data: dict, hops: list, n: int) -> tuple:
             "launches": launches,
             "nodes": node_rows(report),
             "hops": [[h[0], h[1], list(h[2])] for h in run_hops],
+            "joins": joins,
             "result": got if isinstance(got, int) else size,
         }
-        if name.startswith(("dosage_study", "comorbidity")) and rows == n:
+        if name in ("dosage_study", "dosage_study gates", "comorbidity", "comorbidity gates"):
             outputs[name] = (out, report)
-    return results, outputs
+    return results, outputs, answers
 
 
 # ---------------------------------------------------------------------------
@@ -1074,9 +1190,15 @@ def main(argv=None) -> int:
     print("[2] cross-device: quickstart n=48 on cuda and cpu")
     cross_device_phase(dev)
 
-    print(f"[3] full size: n={ROWS_PER_TABLE} rows per table (three_join: n={THREE_JOIN_ROWS}; "
+    print(f"[3] full size: n={ROWS_PER_TABLE} rows per table (three_join's product run: n={THREE_JOIN_ROWS}; "
           f"comorbidity also at n={BIG_ROWS})")
     full = full_phase(dev, ROWS_PER_TABLE, THREE_JOIN_ROWS, BIG_ROWS)
+    print("  python -m repro_torch.sql --check, in-process on cuda:")
+    from repro_torch.sql.__main__ import check as sql_check
+
+    t0 = time.perf_counter()
+    check(sql_check(dev) == 0, "the SQL front end's --check failed on cuda")
+    print(f"  --check passed on cuda in {time.perf_counter() - t0:.3f} s")
 
     gathers = sum(r["launches"].get("shuffle_gather", 0) for r in full.values())
     plans = sum(r["launches"].get("shuffle_plan", 0) for r in full.values())

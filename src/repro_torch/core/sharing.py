@@ -76,12 +76,22 @@ class _ShareBase:
         """Apply a share-local (linear / structural) transform to all shares."""
         return type(self)(fn(self.shares))
 
+    def reshape(self, *shape):
+        """Local re-layout of every share to ``shape``."""
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        return self.map_shares(lambda s: s.reshape((3,) + tuple(shape)))
+
     def take(self, indices: torch.Tensor, axis: int = 0):
         return self.map_shares(lambda s: s.index_select(axis + 1, indices))
 
     @classmethod
     def concat(cls, parts: Sequence["_ShareBase"], axis: int = 0):
         return cls(torch.cat([p.shares for p in parts], dim=axis + 1))
+
+    @classmethod
+    def stack(cls, parts: Sequence["_ShareBase"], axis: int = 0):
+        return cls(torch.stack([p.shares for p in parts], dim=axis + 1))
 
     def pad_rows(self, n_rows: int):
         """Pad axis 0 (rows) up to ``n_rows`` with zero shares (a valid

@@ -1,11 +1,23 @@
 from .healthlnk import generate_healthlnk, plaintext_oracle, revealed_answer
-from .queries import all_query_plans, aspirin_count_plan, comorbidity_plan, dosage_study_plan, three_join_plan
+from .queries import (
+    DIALECT_QUERIES,
+    QUERY_SQL,
+    all_query_plans,
+    all_query_sql,
+    aspirin_count_plan,
+    comorbidity_plan,
+    dosage_study_plan,
+    three_join_plan,
+)
 
 __all__ = [
+    "DIALECT_QUERIES",
+    "QUERY_SQL",
     "generate_healthlnk",
     "plaintext_oracle",
     "revealed_answer",
     "all_query_plans",
+    "all_query_sql",
     "aspirin_count_plan",
     "comorbidity_plan",
     "dosage_study_plan",

@@ -1,7 +1,9 @@
 """Hand-compiled plans of the port: the fourteen HealthLNK goldens of
 ``repro.data.queries`` (paper Table 2 and the dialect goldens), with the
-reference's names. Filters are pushed below joins; Resizer placement is
-applied separately with :func:`repro_torch.plan.policies.insert_resizers`."""
+reference's names, and their SQL forms (``QUERY_SQL``), each of which
+:func:`repro_torch.sql.compile_logical` must compile to its hand plan.
+Filters are pushed below joins; Resizer placement is applied separately
+with :func:`repro_torch.plan.policies.insert_resizers`."""
 from __future__ import annotations
 
 from typing import Dict
@@ -50,6 +52,9 @@ __all__ = [
     "med_dosage_avg_plan",
     "repeat_diagnoses_plan",
     "all_query_plans",
+    "QUERY_SQL",
+    "DIALECT_QUERIES",
+    "all_query_sql",
 ]
 
 
@@ -171,3 +176,86 @@ def all_query_plans() -> Dict[str, PlanNode]:
         "med_dosage_avg": med_dosage_avg_plan(),
         "repeat_diagnoses": repeat_diagnoses_plan(),
     }
+
+
+# The SQL forms of the goldens. Comma-FROM pools go through cost-based join
+# reordering; explicit JOIN chains are honored as written, which is how
+# three_join pins the paper's join order.
+QUERY_SQL = {
+    "comorbidity": (
+        "SELECT major_icd9, COUNT(*) AS cnt FROM diagnoses "
+        "GROUP BY major_icd9 ORDER BY COUNT(*) DESC LIMIT 10"
+    ),
+    "dosage_study": (
+        "SELECT DISTINCT d.pid FROM diagnoses d, medications m "
+        f"WHERE d.pid = m.pid AND d.icd9 = {ICD9_CIRCULATORY} "
+        f"AND m.med = {MED_ASPIRIN} AND m.dosage = {DOSAGE_325MG}"
+    ),
+    "aspirin_count": (
+        "SELECT COUNT(DISTINCT d.pid) FROM diagnoses d "
+        "JOIN medications m ON d.pid = m.pid AND d.time <= m.time "
+        f"WHERE d.icd9 = {ICD9_HEART_414} AND m.med = {MED_ASPIRIN}"
+    ),
+    "three_join": (
+        "SELECT COUNT(DISTINCT d.pid) FROM diagnoses d "
+        "JOIN medications m ON d.pid = m.pid AND d.time <= m.time "
+        "JOIN demographics demo ON d.pid = demo.pid "
+        "JOIN demographics demo2 ON d.pid = demo2.pid "
+        f"WHERE d.diag = {DIAG_HEART_DISEASE} AND m.med = {MED_ASPIRIN}"
+    ),
+    "projection_join": (
+        "SELECT d.pid, m.dosage FROM diagnoses d "
+        "JOIN medications m ON d.pid = m.pid "
+        f"WHERE m.med = {MED_ASPIRIN}"
+    ),
+    "dosage_sum": (
+        f"SELECT SUM(dosage) AS total FROM medications WHERE med = {MED_ASPIRIN}"
+    ),
+    "dosage_avg": (
+        "SELECT AVG(dosage) AS avg_dosage FROM medications "
+        f"WHERE med = {MED_ASPIRIN}"
+    ),
+    "dosage_min": (
+        f"SELECT MIN(dosage) AS lo FROM medications WHERE med = {MED_ASPIRIN}"
+    ),
+    "dosage_max": (
+        f"SELECT MAX(dosage) AS hi FROM medications WHERE med = {MED_ASPIRIN}"
+    ),
+    "heart_or_circulatory": (
+        "SELECT COUNT(*) FROM diagnoses "
+        f"WHERE icd9 = {ICD9_HEART_414} OR icd9 = {ICD9_CIRCULATORY}"
+    ),
+    "diag_breakdown": (
+        "SELECT major_icd9, diag, COUNT(*) AS cnt FROM diagnoses "
+        "GROUP BY major_icd9, diag"
+    ),
+    "med_dosage_sum": (
+        "SELECT med, SUM(dosage) AS total FROM medications GROUP BY med"
+    ),
+    "med_dosage_avg": (
+        "SELECT med, AVG(dosage) AS mean FROM medications GROUP BY med"
+    ),
+    "repeat_diagnoses": (
+        "SELECT major_icd9, COUNT(*) AS cnt FROM diagnoses "
+        "GROUP BY major_icd9 HAVING COUNT(*) >= 2"
+    ),
+}
+
+# The dialect-feature goldens (the execution half of
+# ``python -m repro_torch.sql --check``).
+DIALECT_QUERIES = (
+    "projection_join",
+    "dosage_sum",
+    "dosage_avg",
+    "dosage_min",
+    "dosage_max",
+    "heart_or_circulatory",
+    "diag_breakdown",
+    "med_dosage_sum",
+    "med_dosage_avg",
+    "repeat_diagnoses",
+)
+
+
+def all_query_sql() -> Dict[str, str]:
+    return dict(QUERY_SQL)

@@ -27,6 +27,7 @@ from ..kernels import override_fusion
 from ..ops.table import SecretTable
 from ..plan.nodes import PlanNode
 from ..plan.registry import infer_schema, lookup
+from ..sql.catalog import Catalog
 
 __all__ = ["Engine", "ExecutionReport", "NodeStats"]
 
@@ -108,7 +109,7 @@ class Engine:
 
     def execute(self, plan: PlanNode) -> tuple[SecretTable, ExecutionReport]:
         # unknown columns raise PlanSchemaError here, before any MPC work
-        infer_schema(plan, {name: list(t.cols) for name, t in self.tables.items()})
+        infer_schema(plan, Catalog.from_tables(self.tables))
         report = ExecutionReport()
         self._last_resize_info = None
         with override_fusion(self.config.fuse_circuits):

@@ -110,17 +110,20 @@ def pred_leaves(pred: Pred) -> Tuple[Predicate, ...]:
     return tuple(out)
 
 
-def render_pred(pred: Pred) -> str:
-    """SQL-precedence rendering ``"col op value"`` (Or subtrees are
-    parenthesized inside And) — the Filter's describe() label."""
+def render_pred(pred: Pred, fmt=None) -> str:
+    """SQL-precedence rendering (Or subtrees are parenthesized inside And).
+    ``fmt(leaf)`` renders a leaf; the default ``"col op value"`` is the
+    Filter's describe() label, the SQL renderer passes its own."""
+    if fmt is None:
+        fmt = lambda p: f"{p.column} {p.op} {p.value}"
     if isinstance(pred, Predicate):
-        return f"{pred.column} {pred.op} {pred.value}"
+        return fmt(pred)
     if isinstance(pred, And):
         return " AND ".join(
-            f"({render_pred(t)})" if isinstance(t, Or) else render_pred(t) for t in pred.terms
+            f"({render_pred(t, fmt)})" if isinstance(t, Or) else render_pred(t, fmt) for t in pred.terms
         )
     if isinstance(pred, Or):
-        return " OR ".join(render_pred(t) for t in pred.terms)
+        return " OR ".join(render_pred(t, fmt) for t in pred.terms)
     raise TypeError(f"cannot render predicate {pred!r}")
 
 

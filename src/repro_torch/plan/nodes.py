@@ -1,11 +1,11 @@
-"""Plan nodes of the port: Scan, Filter, Having, Project, Join, GroupByCount,
-GroupBySum, GroupByAvg, OrderBy, Distinct, CountValid, CountDistinct, Sum,
-Avg, Min, Max and Resize.
+"""Plan nodes of the port: Scan, Filter, Having, Project, Join,
+JoinSortMerge, GroupByCount, GroupBySum, GroupByAvg, OrderBy, Distinct,
+CountValid, CountDistinct, Sum, Avg, Min, Max and Resize.
 
 A plan is a tree of dataclass nodes with ``Scan`` leaves over named base
 tables; each node type is registered in :mod:`.registry`. ``describe()``
-strings are those of ``repro.plan.nodes`` (they name the per-node report
-rows that the parity tests compare).
+strings are those of ``repro.plan.nodes``: they name the per-node report
+rows, and ``pretty()`` of them is the SQL compiler's plan fingerprint.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import dataclasses
 from typing import List, Optional, Tuple, Union
 
 from ..core.resizer import ResizerConfig
-from ..ops.filter import Pred, normalize_pred, render_pred
+from ..ops.filter import And, Or, Pred, Predicate, normalize_pred, pred_leaves, render_pred
 
 __all__ = [
     "PlanNode",
@@ -22,6 +22,7 @@ __all__ = [
     "Having",
     "Project",
     "Join",
+    "JoinSortMerge",
     "GroupByCount",
     "GroupBySum",
     "GroupByAvg",
@@ -57,8 +58,18 @@ class PlanNode:
                 kwargs[f.name] = v
         return type(self)(**kwargs)
 
-    def describe(self) -> str:
+    @property
+    def label(self) -> str:
         return type(self).__name__
+
+    def pretty(self, indent: int = 0) -> str:
+        lines = ["  " * indent + self.describe()]
+        for c in self.children():
+            lines.append(c.pretty(indent + 1))
+        return "\n".join(lines)
+
+    def describe(self) -> str:
+        return self.label
 
 
 @dataclasses.dataclass
@@ -79,6 +90,16 @@ class Filter(PlanNode):
 
     def __post_init__(self):
         self.pred = normalize_pred(self.pred)
+
+    @property
+    def predicates(self) -> Tuple[Predicate, ...]:
+        """The leaves of a flat conjunction; raises for a tree with an OR."""
+        if isinstance(self.pred, Or) or (
+            isinstance(self.pred, And)
+            and any(not isinstance(t, Predicate) for t in self.pred.terms)
+        ):
+            raise ValueError("Filter holds a non-conjunctive predicate tree; use .pred")
+        return pred_leaves(self.pred)
 
     def describe(self) -> str:
         return f"Filter({render_pred(self.pred)})"
@@ -125,6 +146,18 @@ class Join(PlanNode):
     def describe(self) -> str:
         t = f" theta={self.theta}" if self.theta else ""
         return f"Join({self.on[0]}=={self.on[1]}{t})"
+
+
+@dataclasses.dataclass
+class JoinSortMerge(Join):
+    """Physical sort-merge variant of :class:`Join`, introduced only by the
+    planner's algorithm selection. ``describe()`` is inherited, so plan
+    fingerprints do not move when the algorithm flips. ``fanout`` publicly
+    bounds the build side's valid rows per key; ``build`` names that side
+    (``"left"`` / ``"right"``)."""
+
+    fanout: int = 1
+    build: str = "left"
 
 
 def _canonical_key(key) -> Union[str, Tuple[str, ...]]:

@@ -347,3 +347,44 @@ def test_shuffle_round_trip_on_cuda_equals_cpu(cuda):
     for name in host:
         assert type(got[name]) is type(want[name])
         assert torch.equal(got[name].shares.cpu(), want[name].shares), name
+
+
+@pytest.mark.parametrize("fanout,theta", [(1, None), (4, ("t", "le", "t"))])
+def test_sortmerge_join_on_cuda_equals_cpu(cuda, fanout, theta):
+    # a 2,000 x 1,500-row sort-merge join (a 4,096-row union), fused and gate
+    # by gate: the same shares on both devices, and every kernel of the path
+    # launched on the fused one
+    from repro_torch.core import threefry
+    from repro_torch.core.prf import setup_prf
+    from repro_torch.kernels import override_fusion
+    from repro_torch.ops import SecretTable, oblivious_join_sortmerge
+
+    rng = np.random.default_rng(fanout)
+    data = [
+        {"k": rng.integers(0, 400, n).astype(np.uint32), "t": rng.integers(0, 50, n).astype(np.uint32)}
+        for n in (2000, 1500)
+    ]
+    valid = [(rng.random(len(d["k"])) < 0.8).astype(np.uint32) for d in data]
+    prf = setup_prf(threefry.PRNGKey(3))
+
+    def run(device):
+        left, right = (SecretTable.from_plaintext(d, threefry.PRNGKey(i), valid=v, device=device)
+                       for i, (d, v) in enumerate(zip(data, valid)))
+        return oblivious_join_sortmerge(left, right, ("k", "k"), prf, theta=theta, fanout=fanout, build="right")
+
+    want = run("cpu")
+    for fused in (True, False):
+        reset_launch_counts()
+        with override_fusion(fused):
+            got = run(cuda)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        kernels = {"rss_gate", "shuffle_gather", "ks_prefix", "and_fold", "bitonic_swap"}
+        if fanout > 1:
+            kernels |= {"a2b_fused", "bit2a_fused"}
+        if fused:
+            assert kernels <= {k for k, c in launches.items() if c}, launches
+        assert list(got.cols) == list(want.cols)
+        for name in want.cols:
+            assert torch.equal(got.col(name).shares.cpu(), want.col(name).shares), name
+        assert torch.equal(got.valid.shares.cpu(), want.valid.shares)

@@ -58,7 +58,23 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
 5. with ``--profile`` only: a ``torch.profiler`` breakdown of device time
    by kernel for one stage of the full-size Distinct's sort (2^23 rows) on
    the fused and on the gate-by-gate path, one join tile, and the largest
-   shuffle hop.
+   shuffle hop;
+6. batched execution: ``Engine.execute_batch`` of K = 4 copies of the
+   sort-merge ``dosage_study`` (n rows per table, Beta(2,6) Resizers,
+   ``bucket_fn`` the next power of two), each slot against a serial
+   ``execute`` of one engine with the same key: stacked and split node
+   counts, every slot's shares, per-node ledger, S and rows identical to
+   its serial run and its rows the oracle's, each kernel's launches in the
+   batch (its Resize nodes, which run per slot, apart) against one serial
+   run's, the batch's seconds against the serial runs' and peak memory;
+   the same with ``RevealNoise`` Resizers (S = T in every slot, so the
+   slots stay stacked through the join and the Distinct and every kernel
+   runs stacked); then a K = 3 batch of the n=48 quickstart plan on
+   ``cuda`` and ``cpu`` (identical);
+7. tracing: one full-size sort-merge ``dosage_study`` under an
+   ``obs.Tracer``: the span count, every span through
+   ``redact.assert_emittable``, the ``node[...]`` spans' seconds summing to
+   the report's total, and ``ExecutionReport.from_dict(to_dict())``.
 
 The lines before the last are the ``{"kernels": [...]}`` summary and the
 card's name and power limit from ``nvidia-smi``; the last line is
@@ -465,11 +481,11 @@ def with_resizers(plan):
     )
 
 
-def sortmerge_plan(query: str, tables: dict, plain: dict, join_algo: str = "sortmerge"):
+def sortmerge_plan(query: str, tables: dict, plain: dict, join_algo: str = "sortmerge", noise=None):
     """``query`` compiled from its SQL by the port's ``compile_query`` with
-    Beta(2,6) Resizers on every internal operator, over a catalog that
-    declares each table's observed pid bound (the sort-merge join needs a
-    declared bound on its build side's key)."""
+    Resizers (``noise``, default Beta(2,6)) on every internal operator, over
+    a catalog that declares each table's observed pid bound (the sort-merge
+    join needs a declared bound on its build side's key)."""
     import numpy as np
 
     from repro_torch.core.noise import BetaNoise
@@ -478,7 +494,7 @@ def sortmerge_plan(query: str, tables: dict, plain: dict, join_algo: str = "sort
 
     mult = {t: {"pid": int(np.bincount(cols["pid"]).max())} for t, cols in plain.items()}
     catalog = Catalog.from_tables(tables, multiplicity=mult)
-    return compile_query(QUERY_SQL[query], catalog, placement="all_internal", noise=BetaNoise(2, 6),
+    return compile_query(QUERY_SQL[query], catalog, placement="all_internal", noise=noise or BetaNoise(2, 6),
                          join_algo=join_algo)
 
 
@@ -796,6 +812,220 @@ def _full_runs(dev, runs: dict, data: dict, hops: list, phases: list, n: int) ->
         if name in ("dosage_study", "dosage_study gates", "comorbidity", "comorbidity gates"):
             outputs[name] = (out, report)
     return results, outputs, answers
+
+
+# ---------------------------------------------------------------------------
+# 6. batched execution
+# ---------------------------------------------------------------------------
+
+BATCH_SLOTS = 4
+
+
+def pow2(s: int) -> int:
+    """The batch's bucket_fn: the next power of two."""
+    return 1 << max(s - 1, 0).bit_length()
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _counting_engine():
+    """An Engine that also counts each node's kernel launches, keyed by the
+    node: a serial run's nodes and a batch's per-slot nodes (Resize, and
+    the nodes after a split) go through ``_run_node_slot``, a batch's
+    stacked nodes through ``_run_batch_stacked``."""
+    from collections import Counter, defaultdict
+
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import launch_counts
+
+    def delta(before):
+        after = launch_counts()
+        return Counter({k: after.get(k, 0) - before.get(k, 0) for k in after if after.get(k, 0) > before.get(k, 0)})
+
+    class CountingEngine(Engine):
+        def _run_node_slot(self, node, children):
+            before = launch_counts()
+            out = super()._run_node_slot(node, children)
+            self.per_slot[id(node)].update(delta(before))
+            return out
+
+        def _run_batch_stacked(self, node, children, ctx):
+            before = launch_counts()
+            out = super()._run_batch_stacked(node, children, ctx)
+            self.stacked[id(node)].update(delta(before))
+            return out
+
+    def make(*args, **kwargs):
+        eng = CountingEngine(*args, **kwargs)
+        eng.per_slot, eng.stacked = defaultdict(Counter), defaultdict(Counter)
+        return eng
+
+    return make
+
+
+def batch_phase(dev, n: int, k: int = BATCH_SLOTS, noise=None) -> dict:
+    """``execute_batch`` of K copies of the sort-merge ``dosage_study``
+    (n rows per table, Resizers with ``noise`` on every internal operator,
+    default Beta(2,6); bucket_fn = next power of two) against K serial
+    ``execute`` runs of one engine with the same key: every slot identical
+    to its serial run, each stacked node launching each kernel no more
+    often than the same node of one serial run (per-slot nodes, Resize and
+    any after a split, launch once per slot), every kernel of the path
+    launched, and the answers the oracle's. The launch counts are set to 0
+    just before the batch and read just after."""
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.core import threefry
+    from repro_torch.data import generate_healthlnk, plaintext_oracle, revealed_answer
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    tables, plain = generate_healthlnk(n=n, seed=0, device=dev)
+    plan = sortmerge_plan("dosage_study", tables, plain, noise=noise)
+    want = plaintext_oracle("dosage_study", plain)
+    engine = _counting_engine()
+
+    serial, serial_s, serial_launches, first = [], [], [], None
+    eng = engine(tables, key=threefry.PRNGKey(42), bucket_fn=pow2, device=dev)
+    for i in range(k):
+        _sync(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        serial.append(eng.execute(plan))
+        _sync(dev)
+        serial_s.append(time.perf_counter() - t0)
+        serial_launches.append(launch_counts())
+        if i == 0:
+            first = {node: Counter(c) for node, c in eng.per_slot.items()}  # one serial run, by node
+
+    beng = engine(tables, key=threefry.PRNGKey(42), bucket_fn=pow2, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    slots = beng.execute_batch([plan] * k)
+    _sync(dev)
+    batch_s = time.perf_counter() - t0
+    launches = launch_counts()
+    reset_launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    stats = dict(beng.last_batch_stats)
+
+    check(stats["stacked_nodes"] > 0, f"batch: no node ran stacked ({stats})")
+    for i, ((bout, brep), (sout, srep)) in enumerate(zip(slots, serial)):
+        check(ledger_rows(brep) == ledger_rows(srep), f"batch slot {i}: per-node ledger or S differs from serial")
+        check([s.extra for s in brep.nodes] == [s.extra for s in srep.nodes],
+              f"batch slot {i}: Resize info (S, p) differs from its serial run")
+        check(same_outputs(bout, sout), f"batch slot {i}: output shares differ from its serial run")
+        got = revealed_answer("dosage_study", plan, bout)
+        check(got == want, f"batch slot {i}: {got} differs from the oracle {want}")
+    sizes = [[s.extra["s"] for s in rep.nodes if "s" in s.extra] for _, rep in slots]
+    stacked_names = [node.describe() for node in post_order(plan) if id(node) in beng.stacked]
+    label = "Beta(2,6)" if noise is None else type(noise).__name__
+    print(f"  dosage_study sort-merge, {label} Resizers, K={k} slots at n={n}: {stats['stacked_nodes']} stacked nodes "
+          f"{stacked_names} and {stats['split_nodes']} split nodes; every slot's shares, per-node ledger, S and "
+          f"rows identical to its serial run; S per slot {sizes}; {len(want)} rows equal the oracle in every slot")
+    stacked_serial = Counter()
+    for node in beng.stacked:
+        stacked_serial.update(first.get(node, Counter()))
+    stacked_batch = sum(beng.stacked.values(), Counter())
+    per_slot_batch = sum(beng.per_slot.values(), Counter())
+    rows = {}
+    for kind in KERNELS:
+        rows[kind] = {"batch": launches.get(kind, 0), "serial": serial_launches[0].get(kind, 0),
+                      "stacked_batch": stacked_batch.get(kind, 0), "stacked_serial": stacked_serial.get(kind, 0),
+                      "per_slot_batch": per_slot_batch.get(kind, 0)}
+        r = rows[kind]
+        print(f"    {kind:14s} batch {r['batch']:6d}, one serial run {r['serial']:6d}; the stacked nodes: batch "
+              f"{r['stacked_batch']:6d}, the same nodes of one serial run {r['stacked_serial']:6d}; per-slot nodes "
+              f"(Resize, split) {r['per_slot_batch']:6d} for {k} slots")
+    if dev.type == "cuda":
+        for node in beng.stacked:
+            for kind, c in beng.stacked[node].items():
+                check(c <= first[node].get(kind, 0),
+                      f"batch: a stacked node launched {kind} {c} times, the same node of one serial run "
+                      f"{first[node].get(kind, 0)}")
+        check_launches("batch", launches, "sortmerge", True)
+    card = nvidia_smi_line() if dev.type == "cuda" else "cpu"
+    print(f"  batch {batch_s:.3f} s against {sum(serial_s):.3f} s for the {k} serial runs "
+          f"({', '.join(f'{x:.3f}' for x in serial_s)}); peak {peak / 2**30:.2f} GiB; {card}")
+    return {"noise": label, "n": n, "slots": k, "stats": stats, "stacked": stacked_names, "batch_s": batch_s,
+            "serial_s": serial_s, "peak_bytes": peak, "launches": launches, "kernels": rows, "sizes": sizes}
+
+
+def batch_cross_device(dev, k: int = 3) -> None:
+    """A K=3 batch of the n=48 quickstart plan on ``dev`` and on ``cpu``:
+    identical shares, ledgers, S and batch stats."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import threefry
+    from repro_torch.engine import Engine
+    from repro_torch.ops import SecretTable
+
+    rng = np.random.default_rng(7)
+    patients = {"pid": rng.integers(0, 12, 48).astype(np.uint32),
+                "icd9": rng.choice([390, 401, 414], 48).astype(np.uint32)}
+    meds = {"pid2": rng.integers(0, 12, 48).astype(np.uint32), "med": rng.choice([1, 2, 3], 48).astype(np.uint32)}
+    plan = with_resizers(quickstart_plan("pid2"))
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        tables = {"diagnoses": SecretTable.from_plaintext(patients, threefry.PRNGKey(0), device=d),
+                  "medications": SecretTable.from_plaintext(meds, threefry.PRNGKey(1), device=d)}
+        eng = Engine(tables, key=threefry.PRNGKey(42), bucket_fn=pow2, device=d)
+        runs[d.type] = (eng.execute_batch([plan] * k), dict(eng.last_batch_stats))
+    (a, astats), (b, bstats) = runs[dev.type], runs["cpu"]
+    check(astats == bstats, f"quickstart batch: stats differ between {dev.type} and cpu ({astats}, {bstats})")
+    for i, ((ao, ar), (bo, br)) in enumerate(zip(a, b)):
+        check(ledger_rows(ar) == ledger_rows(br), f"quickstart batch slot {i}: ledgers or S differ from cpu")
+        check(same_outputs(ao, bo), f"quickstart batch slot {i}: output shares differ from cpu")
+    print(f"  quickstart n=48, K={k}: every slot's shares, ledgers and S identical on {dev.type} and cpu "
+          f"({astats['stacked_nodes']} stacked, {astats['split_nodes']} split nodes)")
+
+
+# ---------------------------------------------------------------------------
+# 7. tracing
+# ---------------------------------------------------------------------------
+
+def tracing_phase(dev, n: int) -> dict:
+    """One full-size sort-merge ``dosage_study`` under a ``Tracer``: every
+    span passes the disclosure audit, the ``node[...]`` spans' seconds sum
+    to the report's total, and the report survives ``to_dict`` /
+    ``from_dict``."""
+    from repro_torch.core import threefry
+    from repro_torch.data import generate_healthlnk
+    from repro_torch.engine import Engine
+    from repro_torch.engine.executor import ExecutionReport
+    from repro_torch.obs import Tracer, redact
+
+    tables, plain = generate_healthlnk(n=n, seed=0, device=dev)
+    plan = sortmerge_plan("dosage_study", tables, plain)
+    engine = Engine(tables, key=threefry.PRNGKey(42), device=dev)
+    tracer = Tracer()
+    with tracer:
+        _, report = engine.execute(plan)
+    spans = tracer.spans
+    nodes = [s for s in spans if s.name.startswith("node[")]
+    for s in spans:
+        redact.assert_emittable(s.attrs)
+    span_s = sum(s.seconds for s in nodes)
+    check(len(nodes) == len(report.nodes), f"tracing: {len(nodes)} node spans for {len(report.nodes)} nodes")
+    check(abs(span_s - report.total_seconds) <= 1e-9 * max(1.0, report.total_seconds),
+          f"tracing: node spans sum to {span_s} s, the report to {report.total_seconds} s")
+    d = report.to_dict()
+    check(ExecutionReport.from_dict(d).to_dict() == d, "tracing: ExecutionReport.from_dict(to_dict()) differs")
+    print(f"  dosage_study sort-merge n={n} under a Tracer: {len(spans)} spans ({len(nodes)} node spans) pass the "
+          f"disclosure audit; node spans sum to {span_s:.6f} s = the report's total; to_dict/from_dict round-trips; "
+          f"redacted keys {sorted(set(tracer.redactions))}")
+    return {"spans": len(spans), "node_spans": len(nodes), "node_seconds": span_s,
+            "report_seconds": report.total_seconds, "redacted": sorted(set(tracer.redactions))}
 
 
 # ---------------------------------------------------------------------------
@@ -1215,7 +1445,21 @@ def main(argv=None) -> int:
         print("[5] device-time breakdown (torch.profiler)")
         profiled = profile_phase(dev, shapes["distinct_rows"], shapes["hop"])
 
-    launches = {k: sum(r["launches"].get(k, 0) for r in full.values()) for k in KERNELS}
+    print(f"[6] batched execution: K={BATCH_SLOTS} slots of the sort-merge dosage_study at n={ROWS_PER_TABLE}")
+    from repro_torch.core.noise import RevealNoise
+
+    batch = batch_phase(dev, ROWS_PER_TABLE)
+    # S = T in every slot: the slots stay stacked through the join and the
+    # Distinct, so every kernel runs stacked
+    stacked = batch_phase(dev, ROWS_PER_TABLE, noise=RevealNoise())
+    batch_cross_device(dev)
+
+    print(f"[7] tracing: the sort-merge dosage_study at n={ROWS_PER_TABLE} under a Tracer")
+    traced = tracing_phase(dev, ROWS_PER_TABLE)
+
+    # launches on the main paths: phase 3's runs and phase 6's batch
+    launches = {k: sum(r["launches"].get(k, 0) for r in full.values()) + batch["launches"].get(k, 0)
+                + stacked["launches"].get(k, 0) for k in KERNELS}
     summary = {"kernels": []}
     for name, (source, tpu) in KERNELS.items():
         rows = timing[name]
@@ -1231,7 +1475,7 @@ def main(argv=None) -> int:
     total_s = time.perf_counter() - t_all
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                "n": ROWS_PER_TABLE, "three_join_n": THREE_JOIN_ROWS, "big_n": BIG_ROWS, "build_s": build_s, "total_s": total_s, "full": full,
-               "timing": timing, "profile": profiled, "summary": summary}
+               "timing": timing, "profile": profiled, "batch": [batch, stacked], "tracing": traced, "summary": summary}
     print(f"total {total_s:.1f} s")
     if args.out:
         out = Path(args.out)

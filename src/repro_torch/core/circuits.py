@@ -76,7 +76,7 @@ def _and_reduce_bits(v: BShare, prf: PRFSetup, width: int) -> BShare:
         return and_fold_fused(v, prf, width).and_public(1)
     d = width // 2
     while d >= 1:
-        v = and_(v, v >> d, prf.fold(d))
+        v = and_(v, v >> d, prf.fold_unpooled(d))
         d //= 2
     return v.and_public(1)
 
@@ -105,7 +105,7 @@ def _ks_levels(g: BShare, p: BShare, prf: PRFSetup, width: int, fold_base: int) 
         return ks_levels_fused(g, p, prf, width, fold_base)
     d = 1
     while d < width:
-        pg, pp = _and_pair(p, g << d, p, p << d, prf.fold(fold_base + d))
+        pg, pp = _and_pair(p, g << d, p, p << d, prf.fold_unpooled(fold_base + d))
         g = g ^ pg
         p = pp
         d *= 2

@@ -12,15 +12,31 @@ on every device: the per-node tallies are the parity signal against
 ``fused(op, rounds)`` coalesces the entries logged inside it into one entry
 with ``rounds`` rounds (independent gates that share rounds), and runs of
 identical entries coalesce into one entry with a ``count``.
+
+An exchange driver (:func:`exchange_scope`, any object with an
+``exchange(op, rounds, nbytes, payload)`` method) is called once per
+top-level entry, as in the reference's networked mode. No driver is
+installed in single-process mode, the only mode the port runs yet, so
+:func:`active_exchange` returns None there.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import threading
+from collections import defaultdict
 from typing import Dict, List, Optional
 
-__all__ = ["CommEntry", "CommLedger", "log_comm", "active_ledger", "fused_scope"]
+__all__ = [
+    "CommEntry",
+    "CommLedger",
+    "log_comm",
+    "active_ledger",
+    "fused_scope",
+    "batched_tally",
+    "exchange_scope",
+    "active_exchange",
+]
 
 _STATE = threading.local()
 
@@ -29,6 +45,30 @@ def _stack() -> List["CommLedger"]:
     if not hasattr(_STATE, "stack"):
         _STATE.stack = []
     return _STATE.stack
+
+
+def active_exchange():
+    """The exchange driver installed on this thread, or None."""
+    return getattr(_STATE, "exchange", None)
+
+
+@contextlib.contextmanager
+def exchange_scope(driver):
+    """Install ``driver`` as this thread's exchange boundary: every top-level
+    ledger entry logged inside the block becomes one ``driver.exchange``
+    call."""
+    prev = getattr(_STATE, "exchange", None)
+    _STATE.exchange = driver
+    try:
+        yield driver
+    finally:
+        _STATE.exchange = prev
+
+
+def _exchange(entry: "CommEntry") -> None:
+    drv = active_exchange()
+    if drv is not None:
+        drv.exchange(entry.op, entry.rounds, entry.bytes_per_party, None)
 
 
 @dataclasses.dataclass
@@ -73,7 +113,11 @@ class CommLedger:
 
     def log(self, op: str, rounds: int, bytes_per_party: int) -> None:
         entry = CommEntry(op, rounds, bytes_per_party)
-        self._append(self._fuse_buffer if self._fuse_depth > 0 else self.entries, entry)
+        if self._fuse_depth > 0:
+            self._append(self._fuse_buffer, entry)
+        else:
+            _exchange(entry)
+            self._append(self.entries, entry)
 
     @contextlib.contextmanager
     def fused(self, op: str, rounds: int):
@@ -88,13 +132,27 @@ class CommLedger:
             del self._fuse_buffer[mark:]
             total_bytes = sum(e.bytes_per_party * e.count for e in sub)
             entry = CommEntry(op, rounds, total_bytes)
-            target = self._fuse_buffer if self._fuse_depth > 0 else self.entries
-            self._append(target, entry)
+            if self._fuse_depth > 0:
+                self._append(self._fuse_buffer, entry)
+            else:
+                _exchange(entry)
+                self._append(self.entries, entry)
 
     def tally(self) -> Dict[str, int]:
         total_bytes = sum(e.bytes_per_party * e.count for e in self.entries)
         total_rounds = sum(e.rounds * e.count for e in self.entries)
         return {"bytes_per_party": total_bytes, "rounds": total_rounds}
+
+    def by_op(self) -> Dict[str, Dict[str, int]]:
+        """Per-op totals: rounds, bytes per party and true call counts."""
+        agg: Dict[str, Dict[str, int]] = defaultdict(
+            lambda: {"rounds": 0, "bytes_per_party": 0, "calls": 0}
+        )
+        for e in self.entries:
+            agg[e.op]["rounds"] += e.rounds * e.count
+            agg[e.op]["bytes_per_party"] += e.bytes_per_party * e.count
+            agg[e.op]["calls"] += e.count
+        return dict(agg)
 
 
 def active_ledger() -> Optional[CommLedger]:
@@ -115,3 +173,13 @@ def fused_scope(op: str, rounds: int):
     if led is None:
         return contextlib.nullcontext()
     return led.fused(op, rounds)
+
+
+def batched_tally(per_slot: Dict[str, float], slots: int) -> Dict[str, float]:
+    """Physical cost of a ``slots``-wide stacked pass from the per-slot tally
+    the ledger recorded once: every slot's bytes move (bytes scale by
+    ``slots``), the synchronous rounds are shared by the batch."""
+    return {
+        "bytes_per_party": per_slot.get("bytes_per_party", 0) * slots,
+        "rounds": per_slot.get("rounds", 0),
+    }

@@ -6,9 +6,9 @@ parallel design; strategies other than Beta derive p = clip(eta/(N-T), 0, 1)),
 and gives the moments of eta (``mean``, ``var``, ``var_parallel``) that the
 cost model reads. Keys are (2,) threefry keys (:mod:`.threefry`).
 ``TruncatedLaplace`` and ``UniformNoise`` draw through ``threefry.uniform``
-and so match ``repro.core.noise`` exactly; ``BetaNoise`` samples its own
-value (see its docstring). The moments are host math, equal to the
-reference's float for float.
+and ``BetaNoise`` through :mod:`.xla_beta` (JAX's Beta sampler with XLA
+CPU's float32 arithmetic), so all three match ``repro.core.noise`` exactly.
+The moments are host math, equal to the reference's float for float.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import threefry
+from . import threefry, xla_beta
 
 __all__ = [
     "NoiseStrategy",
@@ -118,23 +118,15 @@ class TruncatedLaplace(NoiseStrategy):
 
 @dataclasses.dataclass
 class BetaNoise(NoiseStrategy):
-    """p ~ Beta(alpha, beta) (Beta-Binomial with the parallel design).
-
-    ``repro`` draws p with ``jax.random.beta``, whose rejection sampler is
-    not practical to reproduce bit for bit. The port seeds a numpy
-    ``Generator`` from 64 bits of the key (``threefry.bits``) and draws
-    ``beta(alpha, beta)`` from it: the same distribution and a deterministic
-    function of the key, but not the reference's value.
-    """
+    """p ~ Beta(alpha, beta) (Beta-Binomial with the parallel design),
+    drawn as ``jax.random.beta(key, alpha, beta)`` draws it (:mod:`.xla_beta`)."""
 
     alpha: float = 2.0
     beta: float = 6.0
     name: str = "beta"
 
     def sample_p(self, key: torch.Tensor, n: int, t: int) -> float:
-        words = threefry.bits(key, (2,), "cpu").tolist()
-        seed = ((words[0] & 0xFFFFFFFF) << 32) | (words[1] & 0xFFFFFFFF)
-        return float(np.random.default_rng(seed).beta(self.alpha, self.beta))
+        return xla_beta.beta(threefry.key_words(key), self.alpha, self.beta)
 
     def sample_eta(self, key: torch.Tensor, n: int, t: int) -> int:
         # scaled-Beta variant for the sequential design (§4.3)

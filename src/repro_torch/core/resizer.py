@@ -4,8 +4,9 @@ Noise generation -> noise addition (mark eta filler tuples in a secret column
 k beside the true-tuple column c) -> secure shuffle -> reveal-and-trim (open
 k, keep rows with k = 1; the only disclosure is the noisy size S = T + eta).
 A port of ``repro.core.resizer``: parallel (coin toss, both coin modes) and
-sequential (prefix count + one comparison) addition, bucketing, and the lazy
-payload trim. The sort&cut baseline (``use_sort``) is not ported yet.
+sequential (prefix count + one comparison) addition, bucketing (the
+config's multiple, or the engine's ``bucket_fn``), and the lazy payload
+trim. The sort&cut baseline (``use_sort``) is not ported yet.
 
 Lazy payload: :class:`~repro_torch.ops.table.LazyGather` columns (the lazy
 join's views) skip the physical shuffle; only the S kept rows are gathered
@@ -15,7 +16,7 @@ ledgered (``shuffle_deferred_payload``), as in the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -101,6 +102,7 @@ class Resizer:
         table: SecretTable,
         prf: PRFSetup,
         key: torch.Tensor,
+        bucket_fn: Optional[Callable[[int], int]] = None,
     ) -> Tuple[SecretTable, Dict]:
         cfg = self.cfg
         n = table.n
@@ -149,7 +151,9 @@ class Resizer:
         s = int(keep.shape[0])
 
         s_padded = s
-        if cfg.bucket > 1:
+        if bucket_fn is not None:
+            s_padded = max(bucket_fn(s), s)
+        elif cfg.bucket > 1:
             s_padded = ((s + cfg.bucket - 1) // cfg.bucket) * cfg.bucket
         s_padded = min(max(s_padded, 1), n)
 

@@ -17,11 +17,12 @@ import dataclasses
 from typing import Callable, Sequence, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from ..kernels.rss_gate import gate
 from . import threefry
 from .ledger import log_comm
-from .prf import PRFSetup, zero_share_add, zero_share_xor
+from .prf import PRFSetup, zero_share_unpooled
 from .ring import RING32, Ring, from_numpy, s32, srl
 
 __all__ = [
@@ -175,6 +176,11 @@ class BShare(_ShareBase):
 # Share / reveal
 # -----------------------------------------------------------------------------
 
+
+# pytree nodes: the engine's batched pass stacks and vmaps tables leaf by leaf
+pytree.register_dataclass(AShare)
+pytree.register_dataclass(BShare)
+
 def _share_legs(x, key: torch.Tensor, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     x = from_numpy(x, device)
     k0, k1 = threefry.split(key)
@@ -213,8 +219,7 @@ def _gate(x: _ShareBase, y: _ShareBase, prf: PRFSetup, boolean: bool) -> torch.T
     # shapes would misalign; alpha is drawn at the broadcast shape
     xs, ys = torch.broadcast_tensors(x.shares, y.shares)
     xs, ys = xs.contiguous(), ys.contiguous()
-    draw = zero_share_xor if boolean else zero_share_add
-    alpha = draw(prf, xs.shape[1:], xs.device)
+    alpha = zero_share_unpooled(prf, xs.shape[1:], xs.device, xor=boolean)
     return gate(xs, ys, alpha, boolean)
 
 

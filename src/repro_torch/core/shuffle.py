@@ -19,7 +19,7 @@ from typing import Dict, Union
 import torch
 
 from ..kernels.shuffle_gather import gather_hop
-from . import threefry
+from . import material, threefry
 from .ledger import fused_scope, log_comm
 from .prf import PRFSetup, zero_share_add, zero_share_xor
 from .sharing import AShare, BShare, reveal_b
@@ -40,7 +40,15 @@ Share = Union[AShare, BShare]
 def _hop_perm(prf: PRFSetup, hop: int, n: int, device) -> torch.Tensor:
     """Permutation for hop ``hop`` — derived from pair key ``hop``, i.e. known
     to parties hop and hop+1 only."""
-    return threefry.permutation(prf.fold(1000 + hop).pair_keys[hop], n, device)
+    sub = prf.fold(1000 + hop)
+
+    def compute() -> torch.Tensor:
+        return threefry.permutation(sub.pair_keys[hop], n, device)
+
+    src = material.active_if_concrete(sub.pair_keys)
+    if src is None:
+        return compute()
+    return src.fetch("perm", sub.pair_keys, (int(hop), int(n)), compute)
 
 
 def composed_permutation(prf: PRFSetup, n: int, device) -> torch.Tensor:

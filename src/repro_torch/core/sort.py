@@ -22,7 +22,7 @@ from ..kernels import fusion_enabled
 from ..kernels.bitonic_stage import stage_swap
 from .circuits import and_bit, eq, lt, or_bit
 from .ledger import fused_scope, log_comm
-from .prf import PRFSetup, zero_share_xor
+from .prf import PRFSetup, zero_share_unpooled
 from .sharing import AShare, BShare, and_, const_b
 
 __all__ = ["bitonic_sort", "bitonic_sort_narrow", "bitonic_stages"]
@@ -96,7 +96,7 @@ def _stage(
     p_sel = prf.fold(9000 + 31 * k + 7 * j)
     if fusion_enabled():
         # and_'s draw at the broadcast (C, n) shape, and its ledger entry
-        alpha = zero_share_xor(p_sel, own.shape[1:], device)
+        alpha = zero_share_unpooled(p_sel, own.shape[1:], device, xor=True)
         log_comm("and", 1, own[0].numel() * keyb.ring.bytes)
         new = stage_swap(mask.shares, own, other, alpha)
     else:

@@ -27,6 +27,17 @@ launches its kernel for a CUDA tensor and runs its plain PyTorch version for
 a CPU tensor; it records one launch in :func:`launch_counts` where it
 launches its kernel, and nowhere else.
 
+Batched execution
+-----------------
+The engine's stacked pass runs a node's protocol once under
+``torch.func.vmap`` over K query slots. A CUDA launch goes through a
+``torch.library.custom_op`` (namespace ``repro_torch``) whose ``vmap`` rule
+folds the batch axis into the kernel's lanes (:func:`fold_lanes`; the row
+gather takes the K slots as K times the planes), so a stacked node
+launches each kernel as often as one serial slot does. An unbatched
+operand (a zero sharing drawn at per-slot shape) is broadcast to the K
+slots first. On the CPU the plain versions run under ``vmap`` directly.
+
 Circuit fusion
 --------------
 The device is the kernel switch; :func:`fusion_enabled` picks the circuit
@@ -64,6 +75,9 @@ __all__ = [
     "build",
     "check_launch",
     "check_lanes",
+    "require_contiguous",
+    "batch_to",
+    "fold_lanes",
     "c_shifts",
 ]
 
@@ -232,8 +246,28 @@ def check_lanes(name: str, planes, alpha, words: int) -> None:
         raise ValueError(f"{name} operands lie on different devices")
     if alpha.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu, not {alpha.device}")
-    if alpha.device.type == "cuda" and not all(t.is_contiguous() for t in (*planes, alpha)):
+
+
+def require_contiguous(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every operand a kernel reads by pointer is contiguous."""
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous operands")
+
+
+def batch_to(t: torch.Tensor, bdim: Optional[int], k: int, pos: int) -> torch.Tensor:
+    """A ``vmap`` operand's physical tensor with its batch axis moved to
+    ``pos``, contiguous; an unbatched operand (``bdim`` None) is broadcast to
+    the ``k`` slots first."""
+    if bdim is None:
+        t, bdim = t.unsqueeze(0).expand(k, *t.shape), 0
+    return t.movedim(bdim, pos).contiguous()
+
+
+def fold_lanes(t: torch.Tensor, bdim: Optional[int], k: int) -> torch.Tensor:
+    """Fold the batch axis into the lane axis (the last): a per-slot
+    ``(3, ..., N)`` operand becomes one contiguous ``(3, ..., K*N)``, slot
+    after slot. The kernel's output unfolds with ``unflatten(-1, (k, N))``."""
+    return batch_to(t, bdim, k, -2).flatten(-2)
 
 
 def c_shifts(shifts) -> "ctypes.Array":

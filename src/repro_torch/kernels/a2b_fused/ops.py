@@ -16,11 +16,13 @@ additive zero sharings from ``fold(21)`` and ``fold(22)``.
 """
 from __future__ import annotations
 
+from typing import List
+
 import torch
 
-from .. import c_shifts, check_lanes, check_launch, library, record_launch
+from .. import c_shifts, check_lanes, check_launch, fold_lanes, library, record_launch, require_contiguous
 from ...core.ledger import fused_scope, log_comm
-from ...core.prf import PRFSetup, zero_share_add, zero_share_xor
+from ...core.prf import PRFSetup, zero_share_unpooled
 from ...core.sharing import AShare, BShare
 from ..ks_prefix.ops import ks_prefix_plain, ks_shifts
 from ..rss_gate import gate_plain
@@ -75,17 +77,25 @@ def a2b_kernel(xs: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Tensor:
 
     ``xs``: (3, N) int32; ``alphas``: (3, 2(1 + 2 len(shifts)), N) int32;
     ``shifts``: at most 8 shifts in [0, 31]. A CUDA tensor launches the
-    kernel (N = 0 takes the plain path and launches nothing), a CPU tensor
-    runs :func:`a2b_plain`; any other device, dtype, shape or layout raises.
+    kernel (under ``vmap``, once for all slots; N = 0 takes the plain path
+    and launches nothing), a CPU tensor runs :func:`a2b_plain`; any other
+    device, dtype, shape or layout raises.
     """
-    cs = c_shifts(shifts)
+    c_shifts(shifts)
     check_lanes("a2b", [xs], alphas, 2 * (1 + 2 * len(shifts)))
+    if xs.device.type == "cpu":
+        return a2b_plain(xs, alphas, shifts)
+    return _a2b_op(xs, alphas, [int(d) for d in shifts])
+
+
+def _a2b_launch(xs: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Tensor:
     n = xs.shape[1]
     if xs.device.type == "cpu" or n == 0:
         return a2b_plain(xs, alphas, shifts)
+    require_contiguous("a2b", xs, alphas)
     out = torch.empty_like(xs)
     err = library().a2b_launch(
-        xs.data_ptr(), alphas.data_ptr(), out.data_ptr(), n, cs, len(shifts),
+        xs.data_ptr(), alphas.data_ptr(), out.data_ptr(), n, c_shifts(shifts), len(shifts),
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
     check_launch("a2b", err)
@@ -93,17 +103,43 @@ def a2b_kernel(xs: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("repro_torch::a2b_fused", mutates_args=())
+def _a2b_op(xs: torch.Tensor, alphas: torch.Tensor, shifts: List[int]) -> torch.Tensor:
+    return _a2b_launch(xs, alphas, shifts)
+
+
+@_a2b_op.register_fake
+def _(xs, alphas, shifts):
+    return torch.empty_like(xs)
+
+
+def _a2b_batch_rule(info, in_dims, xs, alphas, shifts):
+    k = info.batch_size
+    xs, alphas = (fold_lanes(t, d, k) for t, d in zip((xs, alphas), in_dims[:2]))
+    return _a2b_launch(xs, alphas, shifts).unflatten(-1, (k, -1)), 1
+
+
+_a2b_op.register_vmap(_a2b_batch_rule)
+
+
 def bit2a_kernel(bs: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
     """Both dependent ring products of the bit injection in one launch.
 
     ``bs``: (3, N) int32 (LSB used); ``alphas``: (3, 2, N) int32 additive
-    zero sharings. Devices, checks and N = 0 as :func:`a2b_kernel`; a CPU
-    tensor runs :func:`bit2a_plain`.
+    zero sharings. Devices, checks, ``vmap`` and N = 0 as :func:`a2b_kernel`;
+    a CPU tensor runs :func:`bit2a_plain`.
     """
     check_lanes("bit2a", [bs], alphas, 2)
+    if bs.device.type == "cpu":
+        return bit2a_plain(bs, alphas)
+    return _bit2a_op(bs, alphas)
+
+
+def _bit2a_launch(bs: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
     n = bs.shape[1]
     if bs.device.type == "cpu" or n == 0:
         return bit2a_plain(bs, alphas)
+    require_contiguous("bit2a", bs, alphas)
     out = torch.empty_like(bs)
     err = library().bit2a_launch(
         bs.data_ptr(), alphas.data_ptr(), out.data_ptr(), n,
@@ -114,15 +150,34 @@ def bit2a_kernel(bs: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("repro_torch::bit2a_fused", mutates_args=())
+def _bit2a_op(bs: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
+    return _bit2a_launch(bs, alphas)
+
+
+@_bit2a_op.register_fake
+def _(bs, alphas):
+    return torch.empty_like(bs)
+
+
+def _bit2a_batch_rule(info, in_dims, bs, alphas):
+    k = info.batch_size
+    bs, alphas = (fold_lanes(t, d, k) for t, d in zip((bs, alphas), in_dims))
+    return _bit2a_launch(bs, alphas).unflatten(-1, (k, -1)), 1
+
+
+_bit2a_op.register_vmap(_bit2a_batch_rule)
+
+
 def _ks_add_alphas(prf: PRFSetup, shape, shifts, out: torch.Tensor) -> None:
     """Fill ``out`` (3, 1 + 2L, lanes) with one adder's alpha words in
     kernel order [init, lvl0 pg, lvl0 pp, ...]: the gate-by-gate ``ks_add``'s
     folds (init gate ``fold(11)``, level d ``fold(200 + d)``)."""
     device = out.device
-    out[:, 0] = zero_share_xor(prf.fold(11), shape, device).reshape(3, -1)
+    out[:, 0] = zero_share_unpooled(prf.fold(11), shape, device, xor=True).reshape(3, -1)
     for lvl, d in enumerate(shifts):
-        out[:, 1 + 2 * lvl:3 + 2 * lvl] = zero_share_xor(
-            prf.fold(200 + d), (2,) + shape, device
+        out[:, 1 + 2 * lvl:3 + 2 * lvl] = zero_share_unpooled(
+            prf.fold_unpooled(200 + d), (2,) + shape, device, xor=True
         ).reshape(3, 2, -1)
 
 
@@ -151,8 +206,8 @@ def bit2a_fused(b: BShare, prf: PRFSetup) -> AShare:
     gate-by-gate path takes two ``rss_gate`` launches)."""
     shape, lanes = b.shape, b.size
     alphas = torch.empty((3, 2, lanes), dtype=torch.int32, device=b.device)
-    alphas[:, 0] = zero_share_add(prf.fold(21), shape, b.device).reshape(3, -1)
-    alphas[:, 1] = zero_share_add(prf.fold(22), shape, b.device).reshape(3, -1)
+    alphas[:, 0] = zero_share_unpooled(prf.fold(21), shape, b.device, xor=False).reshape(3, -1)
+    alphas[:, 1] = zero_share_unpooled(prf.fold(22), shape, b.device, xor=False).reshape(3, -1)
     out = bit2a_kernel(b.shares.reshape(3, -1).contiguous(), alphas)
     for _ in range(2):
         log_comm("mul", 1, lanes * b.ring.bytes)

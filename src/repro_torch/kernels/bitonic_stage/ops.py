@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import check_launch, library, record_launch
+from .. import check_launch, fold_lanes, library, record_launch, require_contiguous
 
 __all__ = ["stage_swap", "stage_swap_plain"]
 
@@ -37,9 +37,9 @@ def stage_swap(mask: torch.Tensor, own: torch.Tensor, other: torch.Tensor, alpha
     lane ``other`` where the XOR-shared full-width ``mask`` is set.
 
     ``mask``: (3, N); ``own``, ``other``, ``alpha``: (3, C, N); all int32 on
-    one device. A CUDA tensor launches the kernel, a CPU tensor runs
-    :func:`stage_swap_plain`; any other device, dtype, shape or layout
-    raises.
+    one device. A CUDA tensor launches the kernel (under ``vmap``, once for
+    all slots), a CPU tensor runs :func:`stage_swap_plain`; any other
+    device, dtype, shape or layout raises.
     """
     if own.dim() != 3 or own.shape[0] != 3 or other.shape != own.shape or alpha.shape != own.shape or tuple(
         mask.shape
@@ -58,8 +58,13 @@ def stage_swap(mask: torch.Tensor, own: torch.Tensor, other: torch.Tensor, alpha
         return stage_swap_plain(mask, own, other, alpha)
     if own.device.type != "cuda":
         raise ValueError(f"bitonic_swap runs on cuda or cpu, not {own.device}")
-    if not all(t.is_contiguous() for t in (mask, own, other, alpha)):
-        raise ValueError("bitonic_swap needs contiguous operands")
+    return _stage_swap_op(mask, own, other, alpha)
+
+
+def _launch(mask: torch.Tensor, own: torch.Tensor, other: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    if own.device.type == "cpu":
+        return stage_swap_plain(mask, own, other, alpha)
+    require_contiguous("bitonic_swap", mask, own, other, alpha)
     out = torch.empty_like(own)
     _, c, n = own.shape
     if out.numel() == 0:
@@ -71,3 +76,23 @@ def stage_swap(mask: torch.Tensor, own: torch.Tensor, other: torch.Tensor, alpha
     check_launch("bitonic_swap", err)
     record_launch("bitonic_swap")
     return out
+
+
+@torch.library.custom_op("repro_torch::bitonic_swap", mutates_args=())
+def _stage_swap_op(mask: torch.Tensor, own: torch.Tensor, other: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    return _launch(mask, own, other, alpha)
+
+
+@_stage_swap_op.register_fake
+def _(mask, own, other, alpha):
+    return torch.empty_like(own)
+
+
+def _stage_swap_batch_rule(info, in_dims, mask, own, other, alpha):
+    """K slots in one launch: each operand's batch axis joins its lanes."""
+    k = info.batch_size
+    mask, own, other, alpha = (fold_lanes(t, d, k) for t, d in zip((mask, own, other, alpha), in_dims))
+    return _launch(mask, own, other, alpha).unflatten(-1, (k, -1)), 2
+
+
+_stage_swap_op.register_vmap(_stage_swap_batch_rule)

@@ -22,13 +22,13 @@ do not, as the reference's wrappers do:
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
-from .. import c_shifts, check_lanes, check_launch, library, record_launch
+from .. import c_shifts, check_lanes, check_launch, fold_lanes, library, record_launch, require_contiguous
 from ...core.ledger import log_comm
-from ...core.prf import PRFSetup, zero_share_xor
+from ...core.prf import PRFSetup, zero_share_unpooled
 from ...core.ring import srl
 from ...core.sharing import BShare
 from ..rss_gate import gate_plain
@@ -93,18 +93,25 @@ def ks_prefix(g: torch.Tensor, p: torch.Tensor, alphas: torch.Tensor, shifts) ->
 
     ``g``, ``p``: (3, N) int32; ``alphas``: (3, 2 * len(shifts), N) int32;
     ``shifts``: at most 8 shifts in [0, 31]. A CUDA tensor launches the
-    kernel (N = 0 takes the plain path and launches nothing), a CPU tensor
-    runs :func:`ks_prefix_plain`; any other device, dtype, shape or layout
-    raises.
+    kernel (under ``vmap``, once for all slots; N = 0 takes the plain path
+    and launches nothing), a CPU tensor runs :func:`ks_prefix_plain`; any
+    other device, dtype, shape or layout raises.
     """
-    cs = c_shifts(shifts)
+    c_shifts(shifts)
     check_lanes("ks_prefix", [g, p], alphas, 2 * len(shifts))
+    if g.device.type == "cpu":
+        return ks_prefix_plain(g, p, alphas, shifts)
+    return _ks_prefix_op(g, p, alphas, [int(d) for d in shifts])
+
+
+def _ks_prefix_launch(g: torch.Tensor, p: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Tensor:
     n = g.shape[1]
     if g.device.type == "cpu" or n == 0:
         return ks_prefix_plain(g, p, alphas, shifts)
+    require_contiguous("ks_prefix", g, p, alphas)
     out = torch.empty_like(g)
     err = library().ks_prefix_launch(
-        g.data_ptr(), p.data_ptr(), alphas.data_ptr(), out.data_ptr(), n, cs, len(shifts),
+        g.data_ptr(), p.data_ptr(), alphas.data_ptr(), out.data_ptr(), n, c_shifts(shifts), len(shifts),
         torch.cuda.current_stream(g.device).cuda_stream,
     )
     check_launch("ks_prefix", err)
@@ -112,26 +119,71 @@ def ks_prefix(g: torch.Tensor, p: torch.Tensor, alphas: torch.Tensor, shifts) ->
     return out
 
 
+@torch.library.custom_op("repro_torch::ks_prefix", mutates_args=())
+def _ks_prefix_op(g: torch.Tensor, p: torch.Tensor, alphas: torch.Tensor, shifts: List[int]) -> torch.Tensor:
+    return _ks_prefix_launch(g, p, alphas, shifts)
+
+
+@_ks_prefix_op.register_fake
+def _(g, p, alphas, shifts):
+    return torch.empty_like(g)
+
+
+def _ks_prefix_batch_rule(info, in_dims, g, p, alphas, shifts):
+    k = info.batch_size
+    g, p, alphas = (fold_lanes(t, d, k) for t, d in zip((g, p, alphas), in_dims[:3]))
+    return _ks_prefix_launch(g, p, alphas, shifts).unflatten(-1, (k, -1)), 1
+
+
+_ks_prefix_op.register_vmap(_ks_prefix_batch_rule)
+
+
 def and_fold(v: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Tensor:
     """The equality AND tree in one launch.
 
     ``v``: (3, N) int32; ``alphas``: (3, len(shifts), N) int32. Devices,
-    checks and N = 0 as :func:`ks_prefix`; a CPU tensor runs
+    checks, ``vmap`` and N = 0 as :func:`ks_prefix`; a CPU tensor runs
     :func:`and_fold_plain`.
     """
-    cs = c_shifts(shifts)
+    c_shifts(shifts)
     check_lanes("and_fold", [v], alphas, len(shifts))
+    if v.device.type == "cpu":
+        return and_fold_plain(v, alphas, shifts)
+    return _and_fold_op(v, alphas, [int(d) for d in shifts])
+
+
+def _and_fold_launch(v: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Tensor:
     n = v.shape[1]
     if v.device.type == "cpu" or n == 0:
         return and_fold_plain(v, alphas, shifts)
+    require_contiguous("and_fold", v, alphas)
     out = torch.empty_like(v)
     err = library().and_fold_launch(
-        v.data_ptr(), alphas.data_ptr(), out.data_ptr(), n, cs, len(shifts),
+        v.data_ptr(), alphas.data_ptr(), out.data_ptr(), n, c_shifts(shifts), len(shifts),
         torch.cuda.current_stream(v.device).cuda_stream,
     )
     check_launch("and_fold", err)
     record_launch("and_fold")
     return out
+
+
+@torch.library.custom_op("repro_torch::and_fold", mutates_args=())
+def _and_fold_op(v: torch.Tensor, alphas: torch.Tensor, shifts: List[int]) -> torch.Tensor:
+    return _and_fold_launch(v, alphas, shifts)
+
+
+@_and_fold_op.register_fake
+def _(v, alphas, shifts):
+    return torch.empty_like(v)
+
+
+def _and_fold_batch_rule(info, in_dims, v, alphas, shifts):
+    k = info.batch_size
+    v, alphas = (fold_lanes(t, d, k) for t, d in zip((v, alphas), in_dims[:2]))
+    return _and_fold_launch(v, alphas, shifts).unflatten(-1, (k, -1)), 1
+
+
+_and_fold_op.register_vmap(_and_fold_batch_rule)
 
 
 def _lanes(x: BShare) -> torch.Tensor:
@@ -146,8 +198,8 @@ def ks_levels_fused(g: BShare, p: BShare, prf: PRFSetup, width: int, fold_base: 
     # _and_pair draws it: word 2l for the pg gate, 2l + 1 for pp
     alphas = torch.empty((3, 2 * len(shifts), lanes), dtype=torch.int32, device=device)
     for lvl, d in enumerate(shifts):
-        alphas[:, 2 * lvl:2 * lvl + 2] = zero_share_xor(
-            prf.fold(fold_base + d), (2,) + shape, device
+        alphas[:, 2 * lvl:2 * lvl + 2] = zero_share_unpooled(
+            prf.fold_unpooled(fold_base + d), (2,) + shape, device, xor=True
         ).reshape(3, 2, -1)
     out = ks_prefix(_lanes(g), _lanes(p), alphas, shifts)
     for _ in shifts:
@@ -162,7 +214,7 @@ def and_fold_fused(v: BShare, prf: PRFSetup, width: int) -> BShare:
     shifts = fold_shifts(width)
     alphas = torch.empty((3, len(shifts), lanes), dtype=torch.int32, device=device)
     for lvl, d in enumerate(shifts):
-        alphas[:, lvl] = zero_share_xor(prf.fold(d), shape, device).reshape(3, -1)
+        alphas[:, lvl] = zero_share_unpooled(prf.fold_unpooled(d), shape, device, xor=True).reshape(3, -1)
     out = and_fold(_lanes(v), alphas, shifts)
     for _ in shifts:
         log_comm("and", 1, lanes * v.ring.bytes)

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import check_launch, library, record_launch
+from .. import batch_to, check_launch, library, record_launch, require_contiguous
 
 __all__ = ["gate", "gate_plain"]
 
@@ -28,8 +28,9 @@ def gate(xs: torch.Tensor, ys: torch.Tensor, alpha: torch.Tensor, boolean: bool)
 
     ``xs``, ``ys``, ``alpha``: int32 share triples of one shape ``(3, ...)``
     (the caller broadcasts operands first; lanes are flattened). A CUDA tensor
-    launches the kernel, a CPU tensor runs :func:`gate_plain`; any other
-    device, dtype, shape or layout raises.
+    launches the kernel (under ``vmap``, once for all slots), a CPU tensor
+    runs :func:`gate_plain`; any other device, dtype, shape or layout
+    raises.
     """
     if not (xs.shape == ys.shape == alpha.shape) or xs.dim() < 1 or xs.shape[0] != 3:
         raise ValueError(
@@ -44,8 +45,15 @@ def gate(xs: torch.Tensor, ys: torch.Tensor, alpha: torch.Tensor, boolean: bool)
         return gate_plain(xs, ys, alpha, boolean)
     if xs.device.type != "cuda":
         raise ValueError(f"rss_gate runs on cuda or cpu, not {xs.device}")
-    if not (xs.is_contiguous() and ys.is_contiguous() and alpha.is_contiguous()):
-        raise ValueError("rss_gate needs contiguous operands")
+    return _gate_op(xs, ys, alpha, boolean)
+
+
+def _launch(xs: torch.Tensor, ys: torch.Tensor, alpha: torch.Tensor, boolean: bool) -> torch.Tensor:
+    """One kernel launch over every lane (the plain version for a CPU
+    tensor, so the batch rule also runs on the CPU)."""
+    if xs.device.type == "cpu":
+        return gate_plain(xs, ys, alpha, boolean)
+    require_contiguous("rss_gate", xs, ys, alpha)
     out = torch.empty_like(xs)
     n = xs[0].numel()
     if n == 0:
@@ -57,3 +65,24 @@ def gate(xs: torch.Tensor, ys: torch.Tensor, alpha: torch.Tensor, boolean: bool)
     check_launch("rss_gate", err)
     record_launch("rss_gate")
     return out
+
+
+@torch.library.custom_op("repro_torch::rss_gate", mutates_args=())
+def _gate_op(xs: torch.Tensor, ys: torch.Tensor, alpha: torch.Tensor, boolean: bool) -> torch.Tensor:
+    return _launch(xs, ys, alpha, boolean)
+
+
+@_gate_op.register_fake
+def _(xs, ys, alpha, boolean):
+    return torch.empty_like(xs)
+
+
+def _gate_batch_rule(info, in_dims, xs, ys, alpha, boolean):
+    """K slots in one launch: the batch axis joins the lanes (the gate is
+    lane-wise), behind the share axis."""
+    k = info.batch_size
+    xs, ys, alpha = (batch_to(t, d, k, 1) for t, d in zip((xs, ys, alpha), in_dims[:3]))
+    return _launch(xs, ys, alpha, boolean), 1
+
+
+_gate_op.register_vmap(_gate_batch_rule)

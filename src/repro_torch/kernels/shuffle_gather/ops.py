@@ -29,7 +29,7 @@ from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
-from .. import check_launch, library, record_launch
+from .. import batch_to, check_launch, library, record_launch
 
 __all__ = [
     "GatherPlan",
@@ -121,12 +121,16 @@ def _check_hop(name: str, cols: Sequence[torch.Tensor], index: torch.Tensor) -> 
         raise ValueError(f"{name} operands lie on different devices")
     if index.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu, not {index.device}")
-    if index.device.type == "cuda":
-        if not index.is_contiguous():
-            raise ValueError(f"{name} needs a contiguous index")
-        if any(c.shape[2] > 1 and c.stride(2) != 1 for c in cols):
-            raise ValueError(f"{name} needs the words of a row contiguous")
     return cols[0].shape[0]
+
+
+def _check_layout(name: str, cols: Sequence[torch.Tensor], index: torch.Tensor) -> None:
+    """What the kernels read by pointer: a contiguous index, and the words
+    of each row contiguous."""
+    if not index.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous index")
+    if any(c.shape[2] > 1 and c.stride(2) != 1 for c in cols):
+        raise ValueError(f"{name} needs the words of a row contiguous")
 
 
 def gather_hop(cols: Sequence[torch.Tensor], index: torch.Tensor) -> List[torch.Tensor]:
@@ -138,16 +142,60 @@ def gather_hop(cols: Sequence[torch.Tensor], index: torch.Tensor) -> List[torch.
     ``(N,)`` int64, a permutation of ``[0, N)``, N < 2^31. A row whose index
     lies outside ``[0, N)`` comes out as zeros. On a CUDA tensor the hop takes
     the direct route, one launch, or with a plane above
-    :data:`TWO_PASS_PLANE_BYTES` the two-pass route (plan, pass 1, pass 2);
-    on a CPU tensor it runs
+    :data:`TWO_PASS_PLANE_BYTES` the two-pass route (plan, pass 1, pass 2),
+    under ``vmap`` once for all slots; on a CPU tensor it runs
     :func:`shuffle_gather_plain` per column. Outputs are contiguous.
     """
     _check_hop("gather_hop", cols, index)
     if index.device.type == "cpu":
         return [shuffle_gather_plain(c, index) for c in cols]
+    return _gather_hop_op(list(cols), index)
+
+
+def _hop_launch(cols, index: torch.Tensor) -> List[torch.Tensor]:
+    """The hop's route on real tensors (the plain version on the CPU, so the
+    batch rule also runs there)."""
+    if index.device.type == "cpu":
+        return [shuffle_gather_plain(c, index) for c in cols]
     if uses_two_pass(index.shape[0], max(c.shape[2] for c in cols)):
         return gather_two_pass(cols, index)
     return gather_direct(cols, index)
+
+
+@torch.library.custom_op("repro_torch::gather_hop", mutates_args=())
+def _gather_hop_op(cols: List[torch.Tensor], index: torch.Tensor) -> List[torch.Tensor]:
+    return _hop_launch(cols, index)
+
+
+@_gather_hop_op.register_fake
+def _(cols, index):
+    return [torch.empty(c.shape, dtype=torch.int32, device=c.device) for c in cols]
+
+
+def _gather_hop_batch_rule(info, in_dims, cols, index):
+    """K slots in one hop. With one index for every slot (a shuffle hop's
+    permutation is drawn at per-slot shape), the slots of a column are K
+    times its planes: (K, P, N, W) read as (K*P, N, W), so the hop launches
+    as often as one slot's. With an index per slot, the slots' rows stack
+    into one K*N-row table and each slot's index is offset by its first
+    row."""
+    k = info.batch_size
+    col_dims, index_dim = in_dims
+    if index_dim is None:
+        stacked = [batch_to(c, d, k, 0) for c, d in zip(cols, col_dims)]
+        outs = _hop_launch([c.flatten(0, 1) for c in stacked], index)
+        return [o.unflatten(0, (k, -1)) for o in outs], [0] * len(outs)
+    idx = index.movedim(index_dim, 0)
+    n = idx.shape[1]
+    inside = (idx >= 0) & (idx < n)
+    first = torch.arange(k, dtype=idx.dtype, device=idx.device).unsqueeze(1) * n
+    flat = torch.where(inside, idx + first, -1).reshape(-1).contiguous()
+    tables = [batch_to(c, d, k, 1).flatten(1, 2) for c, d in zip(cols, col_dims)]
+    outs = _hop_launch(tables, flat)
+    return [o.unflatten(1, (k, n)) for o in outs], [1] * len(outs)
+
+
+_gather_hop_op.register_vmap(_gather_hop_batch_rule)
 
 
 def _descriptors(cols, outs, stages) -> "ctypes.Array":
@@ -180,6 +228,7 @@ def gather_direct(cols: Sequence[torch.Tensor], index: torch.Tensor) -> List[tor
     planes = _check_hop("gather_direct", cols, index)
     if index.device.type == "cpu":
         return [shuffle_gather_plain(c, index) for c in cols]
+    _check_layout("gather_direct", cols, index)
     n = index.shape[0]
     outs = [torch.empty(c.shape, dtype=torch.int32, device=c.device) for c in cols]
     if n == 0 or planes == 0:
@@ -298,6 +347,7 @@ def gather_two_pass(
     _plan_shape(n, chunk_rows, tile_rows)
     if index.device.type == "cpu":
         return gather_two_pass_plain(cols, gather_plan_plain(index, chunk_rows, tile_rows))
+    _check_layout("gather_two_pass", cols, index)
     outs = [torch.empty(c.shape, dtype=torch.int32, device=c.device) for c in cols]
     if n == 0 or planes == 0:
         return outs

@@ -14,6 +14,7 @@ from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from ..config import resolve_device
 from ..core import threefry
@@ -155,3 +156,8 @@ class SecretTable:
         d = self.reveal()
         mask = d.pop("_valid").astype(bool)
         return {k: v[mask] for k, v in d.items()}
+
+
+# pytree nodes: the engine's batched pass stacks and vmaps tables leaf by leaf
+pytree.register_dataclass(LazyGather)
+pytree.register_dataclass(SecretTable)

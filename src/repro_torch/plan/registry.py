@@ -10,7 +10,10 @@ FROM/WHERE subtree, ``render_head``, ``render_order``, ``render_having``;
 Resizer-placement hints. The port runs eagerly with no jit cache, so one
 ``apply(engine, node, children)`` hook serves stateless protocols and
 stateful operators (Scan reads the engine's tables; Resize folds the
-engine's noise counter) alike. The flags are the reference's:
+engine's noise counter) alike; in a batched pass a stateless ``apply`` runs
+once under ``torch.func.vmap`` over the stacked slots, and the stateful two
+give a ``batch_apply`` hook (``batchable=False`` marks the reference's
+operators that never run stacked). The flags are the reference's:
 ``resizer="internal"`` marks where a placement may insert a Resize,
 ``balloons`` the joins, ``singleton`` a 1-row output, and ``post_reveal``
 derives AVG's quotient from the revealed (sum, cnt) rows. Estimates and
@@ -62,6 +65,7 @@ __all__ = [
     "PlanSchema",
     "register",
     "lookup",
+    "plan_batchable",
     "infer_schema",
     "BYTES",
     "sort_bytes",
@@ -127,6 +131,8 @@ class OperatorDef:
     singleton: bool = False  # 1-row output
     provides_resize_info: bool = False
     post_reveal: Optional[Callable] = None  # (node, revealed rows) -> rows
+    batchable: bool = True  # may run in the engine's stacked multi-query pass
+    batch_apply: Optional[Callable] = None  # stateful batched-execution hook
 
 
 _REGISTRY: Dict[Type[PlanNode], OperatorDef] = {}
@@ -144,6 +150,15 @@ def lookup(node_type: Type[PlanNode]) -> OperatorDef:
         return _REGISTRY[node_type]
     except KeyError:
         raise TypeError(f"unregistered plan node {node_type.__name__}") from None
+
+
+def plan_batchable(plan: PlanNode) -> bool:
+    """True iff every operator of ``plan`` may run inside the engine's
+    stacked multi-query pass (``Engine.execute_batch``); other plans run
+    serially."""
+    if not lookup(type(plan)).batchable:
+        return False
+    return all(plan_batchable(c) for c in plan.children())
 
 
 # -----------------------------------------------------------------------------
@@ -235,6 +250,8 @@ register(OperatorDef(
     node_type=Scan,
     schema=_scan_schema,
     apply=lambda eng, node, children: eng.tables[node.table],
+    # batched pass: every slot reads the same base table, broadcast
+    batch_apply=lambda eng, node, children, ctx: eng._batch_scan(node, ctx),
     estimate=_scan_estimate,
     render_rel=_render_scan,
     sql_shape="leaf",
@@ -514,6 +531,7 @@ register(OperatorDef(
 
 register(OperatorDef(
     node_type=GroupByAvg,
+    batchable=False,
     schema=_groupby_agg_schema(lambda node: [f"{node.name}_sum", f"{node.name}_cnt"]),
     apply=lambda eng, node, children: oblivious_groupby_avg(children[0], node.keys, node.col, eng.prf, node.name),
     estimate=_groupby_agg_estimate,
@@ -626,6 +644,7 @@ def _count_distinct_estimate(node: CountDistinct, children, cm) -> Dict:
 
 register(OperatorDef(
     node_type=CountValid,
+    batchable=False,
     schema=lambda node, children, catalog: PlanSchema({"cnt": "a"}),
     apply=lambda eng, node, children: count_valid(children[0], eng.prf),
     estimate=_count_estimate,
@@ -637,6 +656,7 @@ register(OperatorDef(
 
 register(OperatorDef(
     node_type=CountDistinct,
+    batchable=False,
     schema=_count_distinct_schema,
     apply=lambda eng, node, children: count_distinct(children[0], node.col, eng.prf),
     estimate=_count_distinct_estimate,
@@ -684,6 +704,7 @@ def _render_aggregate_head(kw: str, default_name: str):
 
 register(OperatorDef(
     node_type=Sum,
+    batchable=False,
     schema=_aggregate_schema(lambda node: [node.name], "a"),
     apply=lambda eng, node, children: sum_column(children[0], node.col, eng.prf, node.name),
     estimate=_sum_estimate,
@@ -695,6 +716,7 @@ register(OperatorDef(
 
 register(OperatorDef(
     node_type=Avg,
+    batchable=False,
     schema=_aggregate_schema(lambda node: [f"{node.name}_sum", f"{node.name}_cnt"], "a"),
     apply=lambda eng, node, children: avg_column(children[0], node.col, eng.prf, node.name),
     estimate=_avg_estimate,
@@ -707,6 +729,7 @@ register(OperatorDef(
 
 register(OperatorDef(
     node_type=Min,
+    batchable=False,
     schema=_aggregate_schema(lambda node: [node.name], "b"),
     apply=lambda eng, node, children: min_column(children[0], node.col, eng.prf, node.name),
     estimate=_minmax_estimate,
@@ -718,6 +741,7 @@ register(OperatorDef(
 
 register(OperatorDef(
     node_type=Max,
+    batchable=False,
     schema=_aggregate_schema(lambda node: [node.name], "b"),
     apply=lambda eng, node, children: max_column(children[0], node.col, eng.prf, node.name),
     estimate=_minmax_estimate,
@@ -734,6 +758,7 @@ def _apply_resize(eng, node: Resize, children):
         children[0],
         eng.prf.fold(900 + eng._resize_ctr),
         rkey,
+        bucket_fn=eng.bucket_fn,
     )
     eng._last_resize_info = info
     return out
@@ -749,6 +774,9 @@ register(OperatorDef(
     node_type=Resize,
     schema=lambda node, children, catalog: children[0],
     apply=_apply_resize,
+    # batched pass: per slot, each with its own noise counter; divergent
+    # revealed sizes split the batch downstream
+    batch_apply=lambda eng, node, children, ctx: eng._batch_resize(node, children, ctx),
     estimate=_resize_estimate,
     provides_resize_info=True,
 ))

@@ -17,8 +17,9 @@ raises where there is no card. ``--check`` has three parts:
    bound), must reveal the same rows as the oracle.
 
 It exits non-zero on any mismatch. ``--explain`` and ``--explain-analyze``
-need the observability layer, which the port does not have yet: they say
-so and exit non-zero.
+run through the client of the multi-party runtime, which the port does not
+have yet (``repro_torch.obs.explain_text`` itself is ported): they say so
+and exit 2.
 """
 from __future__ import annotations
 
@@ -145,8 +146,8 @@ def main(argv) -> int:
         del argv[i:i + 2]
     device = resolve_device(device)
     if argv and argv[0] in ("--explain", "--explain-analyze"):
-        print(f"{argv[0]} needs the observability layer (EXPLAIN and its disclosure "
-              "audit), which repro_torch does not have yet")
+        print(f"{argv[0]} runs through the runtime's client (runtime/), which "
+              "repro_torch does not have yet")
         return 2
     if argv and argv[0] == "--check":
         return check(device)

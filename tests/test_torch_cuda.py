@@ -388,3 +388,123 @@ def test_sortmerge_join_on_cuda_equals_cpu(cuda, fanout, theta):
         for name in want.cols:
             assert torch.equal(got.col(name).shares.cpu(), want.col(name).shares), name
         assert torch.equal(got.valid.shares.cpu(), want.valid.shares)
+
+
+# -----------------------------------------------------------------------------
+# batch rules: K slots under torch.func.vmap in one launch
+# -----------------------------------------------------------------------------
+
+K = 4
+
+
+def _slots(rng, shape, device, batched=True):
+    return _words(rng, ((K,) + shape) if batched else shape, device)
+
+
+def _one_launch_equals_k_launches(kind, fn, plain, operands, dims):
+    """vmap(fn) launches ``kind`` once for all K slots; each slot equals a
+    launch of its own and the plain version."""
+    reset_launch_counts()
+    got = torch.func.vmap(fn, in_dims=dims)(*operands)
+    torch.cuda.synchronize()
+    assert launch_counts().get(kind, 0) == 1, launch_counts()
+    for i in range(K):
+        slot = [t if d is None else t[i] for t, d in zip(operands, dims)]
+        assert torch.equal(got[i], fn(*slot))
+        assert torch.equal(got[i], plain(*slot))
+
+
+@pytest.mark.parametrize("boolean", [True, False])
+def test_rss_gate_batch_rule(cuda, boolean):
+    rng = np.random.default_rng(11)
+    ops = [_slots(rng, (3, 1000), cuda), _slots(rng, (3, 1000), cuda), _slots(rng, (3, 1000), cuda, False)]
+    _one_launch_equals_k_launches("rss_gate", lambda x, y, a: gate(x, y, a, boolean),
+                                  lambda x, y, a: gate_plain(x, y, a, boolean), ops, (0, 0, None))
+
+
+def test_ks_prefix_and_fold_batch_rules(cuda):
+    rng = np.random.default_rng(12)
+    ks, fs = ks_shifts(32), fold_shifts(32)
+    ops = [_slots(rng, (3, 777), cuda), _slots(rng, (3, 777), cuda), _slots(rng, (3, 2 * len(ks), 777), cuda, False)]
+    _one_launch_equals_k_launches("ks_prefix", lambda g, p, a: ks_prefix(g, p, a, ks),
+                                  lambda g, p, a: ks_prefix_plain(g, p, a, ks), ops, (0, 0, None))
+    ops = [_slots(rng, (3, 777), cuda), _slots(rng, (3, len(fs), 777), cuda)]
+    _one_launch_equals_k_launches("and_fold", lambda v, a: and_fold(v, a, fs),
+                                  lambda v, a: and_fold_plain(v, a, fs), ops, (0, 0))
+
+
+def test_a2b_and_bit2a_batch_rules(cuda):
+    rng = np.random.default_rng(13)
+    ks = ks_shifts(32)
+    ops = [_slots(rng, (3, 513), cuda), _slots(rng, (3, 2 * (1 + 2 * len(ks)), 513), cuda, False)]
+    _one_launch_equals_k_launches("a2b_fused", lambda x, a: a2b_kernel(x, a, ks),
+                                  lambda x, a: a2b_plain(x, a, ks), ops, (0, None))
+    ops = [_slots(rng, (3, 513), cuda), _slots(rng, (3, 2, 513), cuda)]
+    _one_launch_equals_k_launches("bit2a_fused", bit2a_kernel, bit2a_plain, ops, (0, 0))
+
+
+def test_bitonic_swap_batch_rule(cuda):
+    rng = np.random.default_rng(14)
+    ops = [_slots(rng, (3, 1030), cuda), _slots(rng, (3, 5, 1030), cuda), _slots(rng, (3, 5, 1030), cuda),
+           _slots(rng, (3, 5, 1030), cuda, False)]
+    _one_launch_equals_k_launches("bitonic_swap", stage_swap, stage_swap_plain, ops, (0, 0, 0, None))
+
+
+@pytest.mark.parametrize("n,ncols", [(4099, 2), (4099, 12), (2_000_000, 2)])
+def test_gather_hop_batch_rule(cuda, n, ncols):
+    # one index for all slots (a hop's permutation): the K slots are K times
+    # a column's planes, so a hop of 12 columns (48 slot-columns, above the
+    # kernels' 32 a launch) still launches once; at 2,000,000 rows x 3 words
+    # a plane passes 22 MiB (the two-pass route)
+    rng = np.random.default_rng(15)
+    cols = [_slots(rng, (3, n, 1 + 2 * (i % 2)), cuda) for i in range(ncols)]
+    index = torch.from_numpy(rng.permutation(n)).to(cuda)
+    reset_launch_counts()
+    serial = gather_hop([c[0] for c in cols], index)
+    serial_launches = launch_counts()
+    reset_launch_counts()
+    got = torch.func.vmap(lambda *xs: gather_hop(list(xs), index))(*cols)
+    torch.cuda.synchronize()
+    assert launch_counts() == serial_launches
+    for col, out, first in zip(cols, got, serial):
+        for i in range(K):
+            assert torch.equal(out[i], shuffle_gather_plain(col[i], index))
+        assert torch.equal(out[0], first)
+
+
+def test_gather_hop_batch_rule_with_an_index_per_slot(cuda):
+    rng = np.random.default_rng(16)
+    n = 3001
+    a = _slots(rng, (3, n, 2), cuda)
+    index = torch.stack([torch.from_numpy(rng.permutation(n)) for _ in range(K)]).to(cuda)
+    reset_launch_counts()
+    (got,) = torch.func.vmap(lambda x, i: gather_hop([x], i))(a, index)
+    torch.cuda.synchronize()
+    assert launch_counts().get("shuffle_gather", 0) == 1
+    for i in range(K):
+        assert torch.equal(got[i], shuffle_gather_plain(a[i], index[i]))
+
+
+def test_execute_batch_on_cuda_equals_cpu(cuda):
+    from repro_torch.core import threefry
+    from repro_torch.core.noise import BetaNoise
+    from repro_torch.core.resizer import ResizerConfig
+    from repro_torch.data import dosage_study_plan, generate_healthlnk
+    from repro_torch.engine import Engine
+    from repro_torch.plan import insert_resizers
+
+    plan = insert_resizers(dosage_study_plan(), lambda node: ResizerConfig(noise=BetaNoise(2, 6)))
+    pow2 = lambda s: 1 << max(s - 1, 0).bit_length()  # noqa: E731
+    results = {}
+    for device in ("cpu", cuda):
+        tables, _ = generate_healthlnk(n=64, seed=1, device=device)
+        eng = Engine(tables, key=threefry.PRNGKey(4), bucket_fn=pow2, device=device)
+        results[str(device)] = (eng.execute_batch([plan] * 3), dict(eng.last_batch_stats))
+    (cpu, cstats), (gpu, gstats) = results["cpu"], results["cuda"]
+    assert cstats == gstats and gstats["stacked_nodes"] > 0
+    for (co, cr), (go, gr) in zip(cpu, gpu):
+        assert [(s.node, s.rounds, s.bytes_per_party, s.extra) for s in cr.nodes] == \
+            [(s.node, s.rounds, s.bytes_per_party, s.extra) for s in gr.nodes]
+        assert torch.equal(co.valid.shares, go.valid.shares.cpu())
+        for name in co.cols:
+            assert torch.equal(co.col(name).shares, go.col(name).shares.cpu()), name

@@ -217,7 +217,7 @@ def test_cli_prints_the_plan_and_refuses_explain(capsys, monkeypatch):
     assert capsys.readouterr().out.strip() == compile_query(sql).pretty()
     for flag in ("--explain", "--explain-analyze"):
         assert main([flag, "--device", "cpu", sql]) != 0
-        assert "observability" in capsys.readouterr().out
+        assert "runtime" in capsys.readouterr().out
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         main([sql])

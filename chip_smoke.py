@@ -74,9 +74,27 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
 7. tracing: one full-size sort-merge ``dosage_study`` under an
    ``obs.Tracer``: the span count, every span through
    ``redact.assert_emittable``, the ``node[...]`` spans' seconds summing to
-   the report's total, and ``ExecutionReport.from_dict(to_dict())``.
+   the report's total, and ``ExecutionReport.from_dict(to_dict())``;
+8. the service: ``AnalyticsService`` over the same n rows per table and
+   the catalog of phase 3's sort-merge runs, with its defaults (Shrinkwrap's
+   TLap noise, parallel addition, cost-based placement, the escalating
+   accountant), the offline pool on and durable state in a temporary
+   directory. Three tenants submit ``dosage_study``, ``aspirin_count`` and
+   ``comorbidity``, then ``dosage_study`` with another literal (a plan
+   cache rebind) and once more; each answer equals the oracle and each
+   submit a pool-off service's with the same key (shares, per-node ledger,
+   S, rows), with seconds, pool hits, misses and bytes per submit and the
+   plan cache's hits, misses and rebinds; the first submit's per-kernel
+   launches equal ``Engine.execute`` of its plan; four tenants enqueue
+   ``comorbidity`` and one drain runs them stacked, each slot equal to the
+   serial submit of a fresh service; a refusing accountant runs out of
+   budget, refuses with ``BudgetRefused``, and a service restarted over the
+   same state directory has the same counts and refuses too (each
+   signature's budget, observed count and ``crt_rounds``); then the
+   service at n=48 gives identical results on ``cuda`` and ``cpu``.
 
-The lines before the last are the ``{"kernels": [...]}`` summary and the
+The kernels line's launches sum phases 3, 6 and 8. The lines before the
+last are the ``{"kernels": [...]}`` summary and the
 card's name and power limit from ``nvidia-smi``; the last line is
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes the details as JSON.
 Without a CUDA device, or without the repository beside it, it exits non-zero
@@ -1029,6 +1047,293 @@ def tracing_phase(dev, n: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 8. the multi-tenant service
+# ---------------------------------------------------------------------------
+
+# the offline pool's byte budget in phase 8: the dosage_study template's
+# static material and eight counters' Resize material fit in it with room
+SERVICE_POOL_BYTES = 256 << 20
+# the refusing accountant's error margin: Eq. 1 over err^2 = 64 gives the
+# default noise a budget of four observations of one subplan
+REFUSE_ERR = 8.0
+BUDGET_SQL = "SELECT COUNT(*) FROM medications WHERE med = 1"
+
+
+def dosage_oracle(plain: dict, icd9: int) -> list:
+    """dosage_study's answer with ``d.icd9 = icd9``."""
+    import numpy as np
+
+    d, m = plain["diagnoses"], plain["medications"]
+    mp = m["pid"][(m["med"] == 1) & (m["dosage"] == 325)]
+    return [int(p) for p in np.intersect1d(d["pid"][d["icd9"] == icd9], mp)]
+
+
+def _service(dev, tables, catalog, state_dir, offline: str, **kw):
+    """The service with its defaults (Shrinkwrap's TLap noise, parallel
+    addition, cost-based placement, the escalating accountant), one key."""
+    from repro_torch.core import threefry
+    from repro_torch.service import AnalyticsService
+
+    return AnalyticsService(tables, catalog=catalog, key=threefry.PRNGKey(42), offline=offline, state_dir=state_dir,
+                            offline_pool_bytes=SERVICE_POOL_BYTES, device=dev, **kw)
+
+
+def _submit(dev, svc, tenant: str, sql: str):
+    """One submit with the launch counts set to 0 just before it and read
+    just after: (result, seconds, launches)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    _sync(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = svc.session(tenant).submit(sql)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    reset_launch_counts()
+    return res, dt, launches
+
+
+def _same_result(a, b) -> bool:
+    """Two QueryResults: the same output shares, per-node ledger and S, rows."""
+    import numpy as np
+
+    return (same_outputs(a.table, b.table) and ledger_rows(a.report) == ledger_rows(b.report)
+            and a.rows.keys() == b.rows.keys() and all(np.array_equal(a.rows[k], b.rows[k]) for k in a.rows))
+
+
+def _add(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def service_phase(dev, n: int) -> dict:
+    """``AnalyticsService`` over ``generate_healthlnk(n)`` under the catalog
+    that declares each table's pid bound, with the offline pool on and
+    durable state in a temporary directory:
+
+    * three tenants submit ``dosage_study``, ``aspirin_count`` and
+      ``comorbidity``, then ``dosage_study`` with another literal (a plan
+      cache rebind) and once more (a hit): every answer the oracle's; after
+      the first submit the scheduler's idle window refills the pool, so the
+      later runs of the template hit it; a second service with the pool off
+      and the same key gives the same shares, per-node ledger, S and rows
+      for every submit;
+    * the first submit's per-kernel launches equal ``Engine.execute`` of the
+      same plan on a fresh engine with the same key;
+    * four tenants ``enqueue`` ``comorbidity`` (no Resize under the
+      service's placement, so its slots stay stacked end to end) and
+      ``drain`` runs one stacked pass; each slot equals the serial submit
+      of a service with the same key;
+    * a refusing accountant (err = 8: a budget of a few observations; a
+      Resizer on every internal operator) refuses with ``BudgetRefused``
+      once the budget is spent, and a new service over the same state
+      directory has the same counts and refuses too.
+
+    Launches of every submit and of the batch are summed for the kernels
+    line; every kernel must have launched."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.crt import crt_rounds
+    from repro_torch.core import threefry
+    from repro_torch.data import QUERY_SQL, generate_healthlnk, plaintext_oracle, revealed_answer
+    from repro_torch.engine import Engine
+    from repro_torch.errors import BudgetRefused
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.service import PrivacyAccountant
+    from repro_torch.sql import Catalog
+
+    tables, plain = generate_healthlnk(n=n, seed=0, device=dev)
+    mult = {t: {"pid": int(np.bincount(cols["pid"]).max())} for t, cols in plain.items()}
+    catalog = Catalog.from_tables(tables, multiplicity=mult)
+    dosage = QUERY_SQL["dosage_study"]
+    check(dosage_oracle(plain, 390) == plaintext_oracle("dosage_study", plain), "service: the rebind oracle is wrong")
+    sequence = [("alice", "dosage_study", dosage, 390), ("bob", "aspirin_count", QUERY_SQL["aspirin_count"], None),
+                ("carol", "comorbidity", QUERY_SQL["comorbidity"], None),
+                ("alice", "dosage_study", dosage.replace("390", "414"), 414), ("dave", "dosage_study", dosage, 390)]
+    totals: dict = {}
+    out: dict = {"n": n, "pool_limit_bytes": SERVICE_POOL_BYTES, "runs": []}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        on = _service(dev, tables, catalog, f"{tmp}/on", "on")
+        off = _service(dev, tables, catalog, f"{tmp}/off", "off")
+        for i, (tenant, query, sql, icd9) in enumerate(sequence):
+            p0 = on.pool.stats()
+            res, dt, launches = _submit(dev, on, tenant, sql)
+            p1 = on.pool.stats()
+            ref, dt_off, launches_off = _submit(dev, off, tenant, sql)
+            _add(totals, launches)
+            want = dosage_oracle(plain, icd9) if icd9 is not None else plaintext_oracle(query, plain)
+            got = revealed_answer(query, res.plan, res.table)
+            check(got == want, f"service {tenant} {query}: {got} differs from the oracle {want}")
+            check(_same_result(res, ref), f"service {tenant} {query}: pool on and off differ")
+            if dev.type == "cuda":
+                check(launches == launches_off, f"service {tenant} {query}: launches differ with the pool off")
+            run = {"tenant": tenant, "query": query, "sql": sql, "seconds": dt, "seconds_off": dt_off,
+                   "hits": p1["hits"] - p0["hits"], "misses": p1["misses"] - p0["misses"],
+                   "pool_bytes": p1["depth_bytes"], "cache_hit": res.cache_hit, "launches": launches,
+                   "s": [s.extra["s"] for s in res.report.nodes if "s" in s.extra], "nodes": node_rows(res.report)}
+            out["runs"].append(run)
+            top = max(res.report.nodes, key=lambda s: s.seconds)
+            label = f"{query} (icd9 {icd9})" if icd9 else query
+            print(f"  {tenant:5s} {label}: {dt:.3f} s (pool off {dt_off:.3f} s; heaviest node {top.node} "
+                  f"{top.seconds:.3f} s, rows in {top.n_ins}), pool hits {run['hits']} misses "
+                  f"{run['misses']}, pool "
+                  f"{run['pool_bytes']} bytes, plan cache {'hit' if res.cache_hit else 'miss'}, S {run['s']}; "
+                  f"equals the oracle and the pool-off service")
+            if i == 0:
+                first_plan, first_launches = ref.plan, launches_off
+                on.drain()  # the idle window: the provisioner refills inline
+                r = on.provisioner.stats()
+                print(f"  idle window: the provisioner refilled the pool in {r['last_refill_seconds']:.3f} s; "
+                      f"pool {on.pool.stats()}")
+        warm = [r for r in out["runs"] if r["query"] == "dosage_study"][1:]
+        check(all(r["hits"] > 0 for r in warm), f"service: warm runs did not hit the pool ({warm})")
+        ps = on.pool.stats()
+        check(ps["evictions"] == 0, f"service: the pool evicted under {SERVICE_POOL_BYTES} bytes ({ps})")
+        cache = on.stats
+        print(f"  plan cache: {cache['plan_cache_hits']} hits, {cache['plan_cache_misses']} misses, "
+              f"{cache['plan_cache_rebinds']} rebinds; pool {ps['depth_bytes']} bytes of {SERVICE_POOL_BYTES} "
+              f"({ps['static_entries']} static, {ps['counter_entries']} counter entries, {ps['evictions']} "
+              f"evictions); accountant {[(a['observed'], a['budget']) for a in on.accountant.status()]}")
+        out.update(pool=ps, cache={k: cache[k] for k in ("plan_cache_hits", "plan_cache_misses",
+                                                          "plan_cache_rebinds")})
+
+        # launches: the first submit against Engine.execute of its plan
+        engine = Engine(tables, key=threefry.PRNGKey(42), device=dev)
+        _sync(dev)
+        reset_launch_counts()
+        engine.execute(first_plan)
+        _sync(dev)
+        direct = launch_counts()
+        reset_launch_counts()
+        if dev.type == "cuda":
+            check(direct == first_launches, f"service: a submit launched {first_launches}, Engine.execute {direct}")
+        print(f"  launches of the first submit equal Engine.execute of its plan: {dict(sorted(direct.items()))}")
+        out["submit_launches"] = direct
+
+        # a batch of four tenants against the serial submits of a fresh service
+        batch_sql = QUERY_SQL["comorbidity"]
+        batch_svc = _service(dev, tables, catalog, f"{tmp}/batch", "on")
+        serial_svc = _service(dev, tables, catalog, f"{tmp}/serial", "on")
+        serial, serial_s = [], []
+        for i in range(BATCH_SLOTS):
+            res, dt, _ = _submit(dev, serial_svc, f"t{i}", batch_sql)
+            serial.append(res)
+            serial_s.append(dt)
+        _sync(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(BATCH_SLOTS):
+            batch_svc.enqueue(f"t{i}", batch_sql)
+        slots = batch_svc.drain()
+        _sync(dev)
+        batch_s = time.perf_counter() - t0
+        # drain() ends with the idle window's inline pool refill
+        refill_s = batch_svc.provisioner.stats()["last_refill_seconds"]
+        batch_launches = launch_counts()
+        reset_launch_counts()
+        _add(totals, batch_launches)
+        stats = dict(batch_svc.engine.last_batch_stats)
+        check(len(slots) == BATCH_SLOTS and all(r.batch_slots == BATCH_SLOTS for r in slots),
+              f"service batch: {[r.batch_slots for r in slots]} slots a pass")
+        for i, (b, s) in enumerate(zip(slots, serial)):
+            check(_same_result(b, s), f"service batch slot {i}: differs from its serial submit")
+            check(revealed_answer("comorbidity", b.plan, b.table) == plaintext_oracle("comorbidity", plain),
+                  f"service batch slot {i}: differs from the oracle")
+        print(f"  batch: {BATCH_SLOTS} tenants' comorbidity, one pass of {stats['stacked_nodes']} stacked and "
+              f"{stats['split_nodes']} split nodes: enqueue and drain {batch_s:.3f} s, of which the idle refill "
+              f"{refill_s:.3f} s, against {sum(serial_s):.3f} s for the serial submits "
+              f"({', '.join(f'{x:.3f}' for x in serial_s)}); every slot equals its serial submit")
+        out["batch"] = {"stats": stats, "batch_s": batch_s, "refill_s": refill_s, "serial_s": serial_s,
+                        "launches": batch_launches}
+
+        # the budget: a refusing accountant, then a restart over the same
+        # state; a Resizer on every internal operator, so the restarted
+        # service's calibrated cost model cannot place the query's one
+        # disclosure away
+        def refusing(state):
+            return _service(dev, tables, catalog, state, "on", placement="all_internal",
+                            accountant=PrivacyAccountant(err=REFUSE_ERR, policy="refuse"))
+
+        budget_svc = refusing(f"{tmp}/budget")
+        admitted = 0
+        for _ in range(16):
+            try:
+                _, _, launches = _submit(dev, budget_svc, "mallory", BUDGET_SQL)
+            except BudgetRefused as e:
+                refusal = (e.observed, e.budget)
+                break
+            _add(totals, launches)
+            admitted += 1
+        else:
+            check(False, "service: the refusing accountant never refused")
+        status = budget_svc.accountant.status()
+        check(admitted == refusal[1] == refusal[0], f"service: {admitted} admitted, refused at {refusal}")
+        restarted = refusing(f"{tmp}/budget")
+        check(restarted.accountant.status() == status, "service: the restarted accountant's counts differ")
+        try:
+            restarted.session("trent").submit(BUDGET_SQL)
+            check(False, "service: the restarted service admitted a spent signature")
+        except BudgetRefused as e:
+            check((e.observed, e.budget) == refusal, f"service: restarted refusal {e.observed, e.budget}")
+        noise, addition = budget_svc.noise, budget_svc.addition
+        sigs = [{"subplan": a["subplan"], "budget": a["budget"], "observed": a["observed"],
+                 "crt_rounds": crt_rounds(noise, addition, a["n"], a["t"], err=REFUSE_ERR)} for a in status]
+        for sg in sigs:
+            print(f"  budget: {sg['subplan']} budget {sg['budget']}, observed {sg['observed']}, crt_rounds "
+                  f"{sg['crt_rounds']:.4f} (err {REFUSE_ERR}); {admitted} admitted, then BudgetRefused, and again "
+                  f"after a restart over the same state directory")
+        out["budget"] = {"admitted": admitted, "signatures": sigs}
+        for svc in (on, off, batch_svc, serial_svc, budget_svc, restarted):
+            svc.close()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    out["launches"] = totals
+    if dev.type == "cuda":
+        missing = [k for k in KERNELS if not totals.get(k, 0)]
+        check(not missing, f"service: {missing} never launched ({totals})")
+    card = nvidia_smi_line() if dev.type == "cuda" else "cpu"
+    print(f"  phase 8 in {out['seconds']:.1f} s; peak {out['peak_bytes'] / 2**30:.2f} GiB; launches "
+          f"{dict(sorted(totals.items()))}; {card}")
+    return out
+
+
+def service_cross_device(dev, n: int = 48) -> None:
+    """The service at n=48 on ``dev`` and on ``cpu``: identical results,
+    accountant, plan cache and pool."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.data import QUERY_SQL, generate_healthlnk
+
+    dosage = QUERY_SQL["dosage_study"]
+    sequence = [("alice", dosage), ("bob", QUERY_SQL["aspirin_count"]), ("carol", QUERY_SQL["comorbidity"]),
+                ("alice", dosage.replace("390", "414")), ("dave", dosage)]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for d in (dev, torch.device("cpu")):
+            tables, _ = generate_healthlnk(n=n, seed=0, device=d)
+            svc = _service(d, tables, None, f"{tmp}/{d.type}", "on")
+            results = [svc.session(t).submit(sql) for t, sql in sequence]
+            runs[d.type] = (results, svc.accountant.status(), svc.stats, svc.pool.stats())
+            svc.close()
+    (a, astat, astats, apool), (b, bstat, bstats, bpool) = runs[dev.type], runs["cpu"]
+    for i, (x, y) in enumerate(zip(a, b)):
+        check(_same_result(x, y), f"service n={n}: submit {i} differs between {dev.type} and cpu")
+    check(astat == bstat and astats == bstats and apool == bpool,
+          f"service n={n}: accountant, stats or pool differ between {dev.type} and cpu")
+    print(f"  service n={n}: {len(sequence)} submits identical on {dev.type} and cpu (shares, ledgers, S, rows, "
+          f"accountant, plan cache, pool {apool['depth_bytes']} bytes)")
+
+
+# ---------------------------------------------------------------------------
 # 4. timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1457,9 +1762,14 @@ def main(argv=None) -> int:
     print(f"[7] tracing: the sort-merge dosage_study at n={ROWS_PER_TABLE} under a Tracer")
     traced = tracing_phase(dev, ROWS_PER_TABLE)
 
-    # launches on the main paths: phase 3's runs and phase 6's batch
+    print(f"[8] the service: AnalyticsService over n={ROWS_PER_TABLE} rows per table, pool on, durable state")
+    service = service_phase(dev, ROWS_PER_TABLE)
+    service_cross_device(dev)
+
+    # launches on the main paths: phase 3's runs, phase 6's batches and
+    # phase 8's submits and batch
     launches = {k: sum(r["launches"].get(k, 0) for r in full.values()) + batch["launches"].get(k, 0)
-                + stacked["launches"].get(k, 0) for k in KERNELS}
+                + stacked["launches"].get(k, 0) + service["launches"].get(k, 0) for k in KERNELS}
     summary = {"kernels": []}
     for name, (source, tpu) in KERNELS.items():
         rows = timing[name]
@@ -1475,7 +1785,8 @@ def main(argv=None) -> int:
     total_s = time.perf_counter() - t_all
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                "n": ROWS_PER_TABLE, "three_join_n": THREE_JOIN_ROWS, "big_n": BIG_ROWS, "build_s": build_s, "total_s": total_s, "full": full,
-               "timing": timing, "profile": profiled, "batch": [batch, stacked], "tracing": traced, "summary": summary}
+               "timing": timing, "profile": profiled, "batch": [batch, stacked], "tracing": traced, "service": service,
+               "summary": summary}
     print(f"total {total_s:.1f} s")
     if args.out:
         out = Path(args.out)

@@ -29,6 +29,7 @@ __all__ = [
     "ConstantNoise",
     "RevealNoise",
     "NoTrim",
+    "shrinkwrap_default",
 ]
 
 
@@ -212,3 +213,8 @@ class NoTrim(NoiseStrategy):
 
     def var(self, n: int, t: int) -> float:
         return 0.0
+
+
+def shrinkwrap_default(sensitivity: float = 1.0) -> TruncatedLaplace:
+    """The paper's evaluation configuration: TLap(eps=0.5, delta=5e-5)."""
+    return TruncatedLaplace(eps=0.5, delta=0.00005, sensitivity=sensitivity)

@@ -46,15 +46,14 @@ class PRFSetup:
         """Derive fresh per-use keys (the PRF counter)."""
         src = material.active_if_concrete(self.pair_keys)
         if src is None:
-            return PRFSetup(self._fold(tag))
-        return PRFSetup(src.fetch("fold", self.pair_keys, (int(tag),), lambda: self._fold(tag)))
+            return PRFSetup(_fold_keys(self.pair_keys, tag))
+        return PRFSetup(
+            src.fetch("fold", self.pair_keys, (int(tag),), lambda: _fold_keys(self.pair_keys, tag))
+        )
 
     def fold_unpooled(self, tag: int) -> "PRFSetup":
         """:meth:`fold` without the material source (a circuit level's fold)."""
-        return PRFSetup(self._fold(tag))
-
-    def _fold(self, tag: int) -> torch.Tensor:
-        return torch.stack([threefry.fold_in(k, tag) for k in self.pair_keys])
+        return PRFSetup(_fold_keys(self.pair_keys, tag))
 
     def draw(self, shape: Tuple[int, ...], device) -> torch.Tensor:
         """F(k_i, .) for each pair key -> (3, *shape) int32 ring words."""
@@ -79,6 +78,10 @@ class PRFSetup:
 
 # the reference names the ring's dtype in its draw args: uint32 words
 _RING_DTYPE = "uint32"
+
+
+def _fold_keys(pair_keys: torch.Tensor, tag: int) -> torch.Tensor:
+    return torch.stack([threefry.fold_in(k, tag) for k in pair_keys])
 
 
 def _draw_bits(pair_keys: torch.Tensor, shape: Tuple[int, ...], device) -> torch.Tensor:

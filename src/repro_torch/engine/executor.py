@@ -5,9 +5,10 @@ static shapes; the only place a public size changes is a ``Resize`` node's
 reveal-and-trim. Each node runs under its own :class:`CommLedger` and the
 engine records a per-node report: wall seconds (on the card, after a
 ``torch.cuda.synchronize()``), the ledger's (rounds, bytes/party), and the
-input/output oblivious sizes. The engine's ``RuntimeConfig.fuse_circuits``
-holds for the whole execution (:func:`~repro_torch.kernels.override_fusion`),
-as the reference applies its config. A port of ``repro.engine.executor``.
+input/output oblivious sizes. The engine's ``RuntimeConfig`` holds for the
+whole execution (:func:`~repro_torch.config.use_config`; ``None`` leaves the
+``REPRO_*`` environment fallback in effect), as in the reference. A port of
+``repro.engine.executor``.
 
 Batched execution (DESIGN.md §11): :meth:`Engine.execute_batch` runs K
 structurally identical plans as one engine pass. Each stateless node's
@@ -36,11 +37,10 @@ import torch
 import torch.utils._pytree as pytree
 from torch.func import vmap
 
-from ..config import RuntimeConfig, resolve_device
+from ..config import RuntimeConfig, resolve_device, use_config
 from ..core import material, threefry
 from ..core.ledger import CommLedger, active_exchange, batched_tally
 from ..core.prf import PRFSetup, setup_prf
-from ..kernels import override_fusion
 from ..obs import redact
 from ..obs import trace as obs_trace
 from ..ops.table import SecretTable
@@ -284,7 +284,7 @@ class Engine:
         self.bucket_fn = bucket_fn
         self.jit_ops = jit_ops
         self.validate = validate
-        self.config = config or RuntimeConfig()
+        self.config = config  # None: the environment fallback (current_config)
         self._resize_ctr = 0
         self._last_resize_info: Optional[Dict] = None
         self.last_batch_stats: Dict = {}
@@ -298,7 +298,7 @@ class Engine:
             infer_schema(plan, Catalog.from_tables(self.tables))
         report = ExecutionReport()
         self._last_resize_info = None  # never carry info across runs
-        with override_fusion(self.config.fuse_circuits), obs_trace.span("execute"):
+        with use_config(self.config), obs_trace.span("execute"):
             out = self._run(plan, report)
         return out, report
 
@@ -434,7 +434,7 @@ class Engine:
             "physical_rounds": 0,
         }
         try:
-            with override_fusion(self.config.fuse_circuits), obs_trace.span("execute", slots=k, batched=True):
+            with use_config(self.config), obs_trace.span("execute", slots=k, batched=True):
                 out = self._run_batch(plans[0], ctx)
         finally:
             # the batch owns the counter range [base+1, base+k*R]; skip past

@@ -41,13 +41,15 @@ slots first. On the CPU the plain versions run under ``vmap`` directly.
 Circuit fusion
 --------------
 The device is the kernel switch; :func:`fusion_enabled` picks the circuit
-path. On (``RuntimeConfig.fuse_circuits``, the default) the comparison,
+path. On (:func:`~repro_torch.config.current_config`'s ``fuse_circuits``,
+the default) the comparison,
 equality and conversion circuits go through the fused kernels, one launch a
 circuit, and each sort stage's select through ``bitonic_swap``; off, they
 run gate by gate through ``rss_gate``. Both paths draw
 the same randomness and log the same ledger entries, so their shares and
 costs are bit-identical. :func:`override_fusion` sets the path for the
-current thread; the engine applies its config with it for one execution.
+current thread and beats the config, which the engine applies with
+``use_config`` for one execution.
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ from typing import Dict, Iterator, Optional
 
 import torch
 
-from ..config import RuntimeConfig
+from ..config import current_config
 
 __all__ = [
     "fusion_enabled",
@@ -95,7 +97,7 @@ _STATE = threading.local()
 def fusion_enabled() -> bool:
     """True when circuits route through the single-launch fused kernels."""
     ov = getattr(_STATE, "fusion", None)
-    return RuntimeConfig.fuse_circuits if ov is None else ov
+    return current_config().fuse_circuits if ov is None else ov
 
 
 @contextlib.contextmanager

@@ -30,8 +30,7 @@ class CostModel:
 
     ``calibration`` is any object with a ``refine(node, est, noise)`` hook
     that replaces estimates with sizes already revealed for the same
-    subplan; the port has no calibration store yet, so it stays ``None``
-    unless a caller brings one.
+    subplan (:class:`repro_torch.state.CalibrationStore`).
     """
 
     table_sizes: Dict[str, int]

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+from ..config import current_config
 from ..core.resizer import ResizerConfig
 from .nodes import Filter, Join, JoinSortMerge, PlanNode, Project, Resize, Scan
 from .registry import lookup
@@ -75,14 +76,14 @@ def select_join_algorithms(
     plan: PlanNode,
     cost_model=None,
     catalog=None,
-    mode: str = "auto",
+    mode: Optional[str] = None,
 ) -> PlanNode:
     """Rewrite logical :class:`Join` nodes to :class:`JoinSortMerge` where
     the sort-merge join applies (a finite catalog bound on at least one
     input's join key) and, in ``auto`` mode, the cost model prices it below
     the product join.
 
-    mode (``RuntimeConfig.join_algo``):
+    mode (``RuntimeConfig.join_algo``; ``None``: :func:`current_config`'s):
       * ``product``   — never rewrite
       * ``sortmerge`` — rewrite every join that applies
       * ``auto``      — rewrite where it applies and its bytes are fewer
@@ -90,6 +91,8 @@ def select_join_algorithms(
     The rewrite is physical only: ``JoinSortMerge.describe()`` is Join's,
     so fingerprints and rendered SQL do not move across the flip.
     """
+    if mode is None:
+        mode = current_config().join_algo
     if mode not in ("auto", "product", "sortmerge"):
         raise ValueError(f"join algo mode {mode!r} (expected auto|product|sortmerge)")
     if mode == "product":

@@ -28,6 +28,7 @@ from typing import Callable, Dict, List, Optional, Type
 
 import numpy as np
 
+from ..config import current_config
 from ..core import threefry
 from ..core.resizer import Resizer
 from ..errors import PlanSchemaError
@@ -360,7 +361,7 @@ register(OperatorDef(
     schema=_join_schema,
     apply=lambda eng, node, children: oblivious_join(
         children[0], children[1], node.on, eng.prf, theta=node.theta,
-        tile=eng.config.join_tile,
+        tile=current_config().join_tile,
     ),
     estimate=_join_estimate,
     render_rel=_render_join,

@@ -37,7 +37,7 @@ import dataclasses
 import itertools
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-from ..config import RuntimeConfig
+from ..config import RuntimeConfig, current_config
 from ..core.resizer import ResizerConfig
 from ..ops.filter import And, Or, Pred, Predicate, normalize_pred
 # the executed join's own collision-renaming IS the compiler's schema rule:
@@ -685,12 +685,12 @@ def compile_query(
 
     ``join_algo`` picks the physical join algorithm per join node
     (:func:`repro_torch.plan.policies.select_join_algorithms`); it defaults
-    to ``config.join_algo`` (a default :class:`RuntimeConfig`: ``auto``).
+    to ``config.join_algo``, else to :func:`~repro_torch.config.current_config`'s.
     The rewrite only fires for catalogs that declare key multiplicity
     bounds, so plans over the bare schema catalog are byte-stable.
     """
     if join_algo is None:
-        join_algo = (config or RuntimeConfig()).join_algo
+        join_algo = (config or current_config()).join_algo
     plan = compile_logical(
         sql, catalog, cost_model=cost_model, reorder_joins=reorder_joins
     )

@@ -508,3 +508,95 @@ def test_execute_batch_on_cuda_equals_cpu(cuda):
         assert torch.equal(co.valid.shares, go.valid.shares.cpu())
         for name in co.cols:
             assert torch.equal(co.col(name).shares, go.col(name).shares.cpu()), name
+
+
+def _service_results(device, tmp_path, offline="on"):
+    from repro_torch.core import threefry
+    from repro_torch.data import QUERY_SQL, generate_healthlnk
+    from repro_torch.service import AnalyticsService
+
+    tables, plain = generate_healthlnk(n=48, seed=0, device=device)
+    svc = AnalyticsService(tables, key=threefry.PRNGKey(42), offline=offline, device=device,
+                           state_dir=str(tmp_path / f"{torch.device(device).type}-{offline}"))
+    dosage = QUERY_SQL["dosage_study"]
+    sequence = [("alice", dosage), ("bob", QUERY_SQL["aspirin_count"]), ("carol", QUERY_SQL["comorbidity"]),
+                ("alice", dosage.replace("390", "414")), ("dave", dosage)]
+    results = []
+    for i, (tenant, sql) in enumerate(sequence):
+        results.append(svc.session(tenant).submit(sql))
+        if i == 0:
+            svc.drain()  # the idle window: the provisioner refills the pool
+    svc.close()
+    return svc, results
+
+
+def _assert_same_results(a, b):
+    for x, y in zip(a, b):
+        assert [(s.node, s.rounds, s.bytes_per_party, s.n_out, s.extra.get("s")) for s in x.report.nodes] == \
+            [(s.node, s.rounds, s.bytes_per_party, s.n_out, s.extra.get("s")) for s in y.report.nodes]
+        assert torch.equal(x.table.valid.shares.cpu(), y.table.valid.shares.cpu())
+        for name in x.table.cols:
+            assert torch.equal(x.table.col(name).shares.cpu(), y.table.col(name).shares.cpu()), name
+        for k in x.rows:
+            assert np.array_equal(x.rows[k], y.rows[k])
+
+
+def test_service_on_cuda_equals_cpu(cuda, tmp_path):
+    """The service at n=48: the same submits on the card and on the CPU
+    give the same shares, ledgers, S, rows, accountant, plan cache and pool."""
+    gsvc, gpu = _service_results(cuda, tmp_path)
+    csvc, cpu = _service_results("cpu", tmp_path)
+    _assert_same_results(gpu, cpu)
+    assert gsvc.accountant.status() == csvc.accountant.status()
+    assert gsvc.stats == csvc.stats and gsvc.pool.stats() == csvc.pool.stats()
+    assert gsvc.pool.stats()["hits"] > 0
+
+
+def test_service_pool_hits_equal_misses_on_cuda(cuda, tmp_path):
+    _, hot = _service_results(cuda, tmp_path, offline="on")
+    _, cold = _service_results(cuda, tmp_path, offline="off")
+    _assert_same_results(hot, cold)
+
+
+def test_service_submit_launches_equal_engine_execute(cuda, tmp_path):
+    from repro_torch.core import threefry
+    from repro_torch.data import QUERY_SQL, generate_healthlnk
+    from repro_torch.engine import Engine
+    from repro_torch.service import AnalyticsService
+
+    tables, _ = generate_healthlnk(n=48, seed=0, device=cuda)
+    svc = AnalyticsService(tables, key=threefry.PRNGKey(42), device=cuda, state_dir=str(tmp_path))
+    reset_launch_counts()
+    res = svc.session("a").submit(QUERY_SQL["dosage_study"])
+    torch.cuda.synchronize()
+    submitted = launch_counts()
+    reset_launch_counts()
+    Engine(tables, key=threefry.PRNGKey(42), device=cuda).execute(res.plan)
+    torch.cuda.synchronize()
+    assert launch_counts() == submitted and submitted.get("shuffle_gather", 0) > 0
+
+
+def test_background_provisioner_on_cuda(cuda, tmp_path):
+    """The provisioner thread draws on the card on the default stream; the
+    pooled material it hands the engine equals the on-demand draws."""
+    import time
+
+    from repro_torch.core import threefry
+    from repro_torch.data import QUERY_SQL, generate_healthlnk
+    from repro_torch.service import AnalyticsService
+
+    tables, _ = generate_healthlnk(n=48, seed=0, device=cuda)
+    ref = AnalyticsService(tables, key=threefry.PRNGKey(42), device=cuda, offline="off")
+    want = [ref.session("a").submit(QUERY_SQL["dosage_study"]) for _ in range(3)]
+    svc = AnalyticsService(tables, key=threefry.PRNGKey(42), device=cuda, offline="background")
+    try:
+        svc.provisioner.interval_s = 0.05
+        got = [svc.session("a").submit(QUERY_SQL["dosage_study"])]
+        deadline = time.monotonic() + 60
+        while svc.pool.stats()["counter_entries"] == 0 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        got += [svc.session("a").submit(QUERY_SQL["dosage_study"]) for _ in range(2)]
+        assert svc.provisioner.stats()["error"] is None and svc.pool.stats()["hits"] > 0
+    finally:
+        svc.close()
+    _assert_same_results(got, want)

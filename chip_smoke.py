@@ -91,9 +91,23 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
    budget, refuses with ``BudgetRefused``, and a service restarted over the
    same state directory has the same counts and refuses too (each
    signature's budget, observed count and ``crt_rounds``); then the
-   service at n=48 gives identical results on ``cuda`` and ``cpu``.
+   service at n=48 gives identical results on ``cuda`` and ``cpu``;
+9. the networked runtime (``repro_torch.runtime``) over the same n rows per
+   table, the catalog of phase 8 and the service's defaults with the pool
+   off: ``ReflexClient.networked`` with three party threads on the card
+   (a loopback mesh) submits phase 8's three tenants' queries, each equal
+   to an in-process client's (rows, per-node ledger, S and the output share
+   triples, max difference 0) and the oracle, with ledger bytes =
+   exchange-log bytes = wire bytes for each party and each kernel's
+   launches exactly three times the in-process submit's (seconds, stall,
+   payload exchanges and their device-to-host bytes printed per party);
+   then ``python -m repro_torch.runtime.run_parties --party all`` starts
+   three party processes on the card, a ``connect_tcp`` client's
+   ``dosage_study`` equals the loopback mesh's and the launcher exits 0;
+   then ``python -m repro_torch.sql --explain-analyze --networked`` on one
+   golden exits 0 and writes its trace.
 
-The kernels line's launches sum phases 3, 6 and 8. The lines before the
+The kernels line's launches sum phases 3, 6, 8 and 9. The lines before the
 last are the ``{"kernels": [...]}`` summary and the
 card's name and power limit from ``nvidia-smi``; the last line is
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes the details as JSON.
@@ -1334,6 +1348,210 @@ def service_cross_device(dev, n: int = 48) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 9. the networked runtime: three parties
+# ---------------------------------------------------------------------------
+
+# the tenants of phase 8 and their queries, through both clients
+RUNTIME_QUERIES = (("alice", "dosage_study"), ("bob", "aspirin_count"), ("carol", "comorbidity"))
+
+
+def _runtime_answer(plain: dict, query: str, res):
+    from repro_torch.data import plaintext_oracle, revealed_answer
+
+    got, want = revealed_answer(query, res.plan, res.table), plaintext_oracle(query, plain)
+    check(got == want, f"runtime {query}: {got} differs from the oracle {want}")
+
+
+def _table_err(a, b) -> int:
+    """Largest |difference| over two output tables' share words."""
+    import numpy as np
+
+    sa, sb = share_rows(a), share_rows(b)
+    check(list(sa) == list(sb), "runtime: the output columns differ")
+    return max(int(np.abs(sa[k].astype(np.int64) - sb[k].astype(np.int64)).max(initial=0)) for k in sa)
+
+
+def _audit_line(audit: list) -> str:
+    return "; ".join(f"p{a['party']} {a['wire_bytes']} B wire = ledger, {a['exchanges']} exchanges "
+                     f"({a['payload_exchanges']} with shares, {a['d2h_bytes']} B to the host), stall "
+                     f"{a['stall_seconds']:.3f} s, bodies {a['body_seconds']:.3f} s" for a in audit)
+
+
+def _check_audit(label: str, audit: list) -> None:
+    check([a["party"] for a in audit] == [0, 1, 2], f"{label}: audit of parties {audit}")
+    for a in audit:
+        check(a["ledger_bytes"] == a["exchange_bytes"] == a["wire_bytes"],
+              f"{label}: party {a['party']} wire {a['wire_bytes']} != ledger {a['ledger_bytes']}")
+
+
+def _party_endpoints(proc, timeout: float) -> dict:
+    """The ``[party p] listening on HOST:PORT`` lines of a ``run_parties``
+    launcher, until all three parties listen (the launcher is killed past
+    ``timeout``)."""
+    import re
+    import threading
+
+    endpoints, seen = {}, []
+    timer = threading.Timer(timeout, proc.kill)
+    timer.start()
+    try:
+        while len(endpoints) < 3:
+            line = proc.stdout.readline()
+            check(bool(line), f"runtime tcp: the party launcher exited early: {''.join(seen)}")
+            seen.append(line)
+            m = re.match(r"\[party (\d)\] listening on (.+):(\d+)", line)
+            if m:
+                endpoints[int(m.group(1))] = (m.group(2), int(m.group(3)))
+    finally:
+        timer.cancel()
+    return endpoints
+
+
+def runtime_phase(dev, n: int) -> dict:
+    """The multi-party runtime over ``generate_healthlnk(n)`` with the
+    catalog of phase 3's sort-merge runs and the service's defaults, the
+    offline pool off (``networked()`` pins it):
+
+    * loopback: ``ReflexClient.networked`` with three party threads on
+      ``dev`` submits phase 8's three tenants' queries; each equals an
+      in-process client's with the same key (rows, per-node ledger, S, and
+      the reassembled output share triples, max difference 0) and the
+      oracle; each party's ledger bytes = exchange-log bytes = wire bytes;
+      each kernel's launches are exactly three times the in-process
+      submit's;
+    * TCP: ``python -m repro_torch.runtime.run_parties --party all`` on
+      free ports (the kernels are built before), ``connect_tcp``, one
+      ``dosage_study`` equal to the loopback's; the launcher exits 0 after
+      the shutdown;
+    * the CLI: ``python -m repro_torch.sql --explain-analyze --networked``
+      on one golden exits 0.
+
+    Launches of the networked submits are summed for the kernels line."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core import threefry
+    from repro_torch.data import QUERY_SQL, generate_healthlnk
+    from repro_torch.runtime import ReflexClient, connect_tcp
+    from repro_torch.sql import Catalog
+
+    tables, plain = generate_healthlnk(n=n, seed=0, device=dev)
+    mult = {t: {"pid": int(np.bincount(cols["pid"]).max())} for t, cols in plain.items()}
+    catalog = Catalog.from_tables(tables, multiplicity=mult)
+    out: dict = {"n": n, "runs": []}
+    totals: dict = {}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+
+    inproc = ReflexClient.in_process(tables, catalog=catalog, key=threefry.PRNGKey(42), offline="off", device=dev)
+    net = ReflexClient.networked(tables, catalog=catalog, key_seed=42, device=dev)
+    loop_results = {}
+    try:
+        for tenant, query in RUNTIME_QUERIES:
+            sql = QUERY_SQL[query]
+            ref, dt_in, l_in = _submit(dev, inproc.service, tenant, sql)
+            res, dt_net, l_net = _submit(dev, net.service, tenant, sql)
+            _add(totals, l_net)
+            audit = net.service.engine.last_wire_audit
+            _runtime_answer(plain, query, res)
+            check(_same_result(res, ref), f"runtime {query}: networked differs from in-process")
+            err = _table_err(res.table, ref.table)
+            check(err == 0, f"runtime {query}: output shares differ by {err}")
+            _check_audit(f"runtime {query}", audit)
+            if dev.type == "cuda":
+                want = {k: 3 * v for k, v in l_in.items()}
+                check(l_net == want, f"runtime {query}: networked launched {l_net}, 3x in-process is {want}")
+            loop_results[query] = res
+            run = {"tenant": tenant, "query": query, "seconds": dt_net, "seconds_in_process": dt_in,
+                   "audit": audit, "launches": l_net, "launches_in_process": l_in, "max_abs_err": err,
+                   "s": [s.extra["s"] for s in res.report.nodes if "s" in s.extra], "nodes": node_rows(res.report)}
+            out["runs"].append(run)
+            print(f"  {tenant:5s} {query}: networked {dt_net:.3f} s, in-process {dt_in:.3f} s "
+                  f"({dt_net / dt_in:.2f}x), S {run['s']}; rows, ledger, S and output shares equal "
+                  f"(max |diff| {err}); {_audit_line(audit)}")
+            print(f"    launches networked {dict(sorted(l_net.items()))} = 3 x in-process "
+                  f"{dict(sorted(l_in.items()))}")
+        status = net.status()["runtime"]["mesh"]
+        check(status["ok"] and [p["queries"] for p in status["parties"]] == [len(RUNTIME_QUERIES)] * 3,
+              f"runtime: mesh status {status}")
+        print(f"  mesh status: {[(p['party'], p['queries'], p['bytes']) for p in status['parties']]}, "
+              f"control rtt {status['rtt_seconds']}")
+    finally:
+        net.close()
+        inproc.close()
+    check(not any(t.is_alive() for t in net.coordinator.party_threads), "runtime: a party thread outlived the mesh")
+    out["loopback_seconds"] = time.perf_counter() - t_phase
+
+    # TCP: three party processes on this card
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        kernels.build()  # once, before the parties start
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.runtime.run_parties", "--party", "all", "--base-port", "0",
+         "--device", dev.type], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+    try:
+        endpoints = _party_endpoints(proc, timeout=300.0)
+        client = ReflexClient.networked(tables, coordinator=connect_tcp(endpoints), catalog=catalog, key_seed=42,
+                                        device=dev)
+        try:
+            tcp, dt_tcp, _ = _submit(dev, client.service, "alice", QUERY_SQL["dosage_study"])
+            audit = client.service.engine.last_wire_audit
+        finally:
+            client.close()
+        rc = proc.wait(timeout=120.0)
+        log = proc.stdout.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60.0)
+        proc.stdout.close()
+    check(rc == 0, f"runtime tcp: the party launcher exited {rc}:\n{log}")
+    _check_audit("runtime tcp", audit)
+    _runtime_answer(plain, "dosage_study", tcp)
+    err = _table_err(tcp.table, loop_results["dosage_study"].table)
+    check(_same_result(tcp, loop_results["dosage_study"]) and err == 0,
+          "runtime tcp: dosage_study differs from the loopback mesh's")
+    out["tcp"] = {"endpoints": {str(k): list(v) for k, v in endpoints.items()}, "seconds": dt_tcp, "audit": audit,
+                  "phase_seconds": time.perf_counter() - t0}
+    print(f"  tcp: three party processes on {endpoints}: dosage_study {dt_tcp:.3f} s, equal to the loopback "
+          f"mesh's; {_audit_line(audit)}; the launcher exited 0 ({time.perf_counter() - t0:.1f} s with start-up)")
+
+    # the SQL CLI's networked EXPLAIN ANALYZE
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = f"{tmp}/trace.jsonl"
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.sql", "--explain-analyze", "--networked", "--device", dev.type,
+             "--trace-out", trace, QUERY_SQL["dosage_study"]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, timeout=600)
+        traced = os.path.exists(trace) and os.path.exists(trace + ".chrome.json")
+    check(cli.returncode == 0 and traced and "wire:" in cli.stdout,
+          f"runtime cli: exit {cli.returncode}, trace written {traced}:\n{cli.stdout}")
+    out["cli_seconds"] = time.perf_counter() - t0
+    print(f"  python -m repro_torch.sql --explain-analyze --networked --device {dev.type} dosage_study: exit 0 in "
+          f"{out['cli_seconds']:.1f} s; its wire line: "
+          f"{next(ln for ln in cli.stdout.splitlines() if ln.startswith('wire:'))}")
+
+    out["seconds"] = time.perf_counter() - t_phase
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    out["launches"] = totals
+    if dev.type == "cuda":
+        missing = [k for k in KERNELS if not totals.get(k, 0)]
+        check(not missing, f"runtime: {missing} never launched ({totals})")
+    card = nvidia_smi_line() if dev.type == "cuda" else "cpu"
+    print(f"  phase 9 in {out['seconds']:.1f} s; peak {out['peak_bytes'] / 2**30:.2f} GiB; launches "
+          f"{dict(sorted(totals.items()))}; {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 4. timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1766,10 +1984,15 @@ def main(argv=None) -> int:
     service = service_phase(dev, ROWS_PER_TABLE)
     service_cross_device(dev)
 
-    # launches on the main paths: phase 3's runs, phase 6's batches and
-    # phase 8's submits and batch
+    print(f"[9] the networked runtime: three parties on {dev} over n={ROWS_PER_TABLE} rows per table "
+          f"(loopback threads, TCP processes, the SQL CLI)")
+    runtime = runtime_phase(dev, ROWS_PER_TABLE)
+
+    # launches on the main paths: phase 3's runs, phase 6's batches, phase
+    # 8's submits and batch, and phase 9's networked submits
     launches = {k: sum(r["launches"].get(k, 0) for r in full.values()) + batch["launches"].get(k, 0)
-                + stacked["launches"].get(k, 0) + service["launches"].get(k, 0) for k in KERNELS}
+                + stacked["launches"].get(k, 0) + service["launches"].get(k, 0) + runtime["launches"].get(k, 0)
+                for k in KERNELS}
     summary = {"kernels": []}
     for name, (source, tpu) in KERNELS.items():
         rows = timing[name]
@@ -1785,7 +2008,7 @@ def main(argv=None) -> int:
     total_s = time.perf_counter() - t_all
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                "n": ROWS_PER_TABLE, "three_join_n": THREE_JOIN_ROWS, "big_n": BIG_ROWS, "build_s": build_s, "total_s": total_s, "full": full,
-               "timing": timing, "profile": profiled, "batch": [batch, stacked], "tracing": traced, "service": service,
+               "timing": timing, "profile": profiled, "batch": [batch, stacked], "tracing": traced, "service": service, "runtime": runtime,
                "summary": summary}
     print(f"total {total_s:.1f} s")
     if args.out:

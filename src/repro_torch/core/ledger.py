@@ -15,9 +15,14 @@ identical entries coalesce into one entry with a ``count``.
 
 An exchange driver (:func:`exchange_scope`, any object with an
 ``exchange(op, rounds, nbytes, payload)`` method) is called once per
-top-level entry, as in the reference's networked mode. No driver is
-installed in single-process mode, the only mode the port runs yet, so
-:func:`active_exchange` returns None there.
+top-level entry: the multi-party runtime's
+:class:`~repro_torch.runtime.exchange.RingExchange` turns each into one
+framed wire exchange. ``payload`` is the canonical ``(3, ...)`` share tensor
+a protocol hands :func:`log_comm` at its sync point (a reveal's opening, a
+mul / AND gate's reshared output, ``reveal_k``); entries logged inside
+``fused()`` reach the driver as one payload-free entry. The ledger only
+passes the tensor on: without a driver installed (single-process mode)
+nothing reads it.
 """
 from __future__ import annotations
 
@@ -65,10 +70,10 @@ def exchange_scope(driver):
         _STATE.exchange = prev
 
 
-def _exchange(entry: "CommEntry") -> None:
+def _exchange(entry: "CommEntry", payload=None) -> None:
     drv = active_exchange()
     if drv is not None:
-        drv.exchange(entry.op, entry.rounds, entry.bytes_per_party, None)
+        drv.exchange(entry.op, entry.rounds, entry.bytes_per_party, payload)
 
 
 @dataclasses.dataclass
@@ -111,12 +116,14 @@ class CommLedger:
                 return
         target.append(entry)
 
-    def log(self, op: str, rounds: int, bytes_per_party: int) -> None:
+    def log(self, op: str, rounds: int, bytes_per_party: int, payload=None) -> None:
         entry = CommEntry(op, rounds, bytes_per_party)
         if self._fuse_depth > 0:
+            # the constituents of a fused round block ride one exchange,
+            # fired payload-free when the merged entry lands
             self._append(self._fuse_buffer, entry)
         else:
-            _exchange(entry)
+            _exchange(entry, payload)
             self._append(self.entries, entry)
 
     @contextlib.contextmanager
@@ -160,11 +167,14 @@ def active_ledger() -> Optional[CommLedger]:
     return stack[-1] if stack else None
 
 
-def log_comm(op: str, rounds: int, bytes_per_party: int) -> None:
-    """Log one sync point on the active ledger (a no-op without one)."""
+def log_comm(op: str, rounds: int, bytes_per_party: int, payload=None) -> None:
+    """Log one sync point on the active ledger (a no-op without one).
+    ``payload`` (optional) is the canonical ``(3, ...)`` share tensor
+    exchanged at this boundary: the tally ignores it, an exchange driver
+    ships this party's slice of it and checks the peer's."""
     led = active_ledger()
     if led is not None:
-        led.log(op, rounds, bytes_per_party)
+        led.log(op, rounds, bytes_per_party, payload)
 
 
 def fused_scope(op: str, rounds: int):

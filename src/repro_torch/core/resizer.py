@@ -146,7 +146,7 @@ class Resizer:
 
         # 4. reveal-and-trim: open k (the only disclosure), drop k=0 rows
         k_open = (k_col.shares[0] ^ k_col.shares[1] ^ k_col.shares[2]) & 1
-        log_comm("reveal_k", 1, n * k_col.ring.bytes)
+        log_comm("reveal_k", 1, n * k_col.ring.bytes, payload=k_col.shares)
         keep = torch.nonzero(k_open).flatten()
         s = int(keep.shape[0])
 

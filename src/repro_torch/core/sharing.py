@@ -201,12 +201,12 @@ def share_b(x, key: torch.Tensor, device) -> BShare:
 
 def reveal_a(x: AShare) -> torch.Tensor:
     """Open an arithmetic sharing (1 round; each party sends one share)."""
-    log_comm("reveal", 1, x.size * x.ring.bytes)
+    log_comm("reveal", 1, x.size * x.ring.bytes, payload=x.shares)
     return x.shares[0] + x.shares[1] + x.shares[2]
 
 
 def reveal_b(x: BShare) -> torch.Tensor:
-    log_comm("reveal", 1, x.size * x.ring.bytes)
+    log_comm("reveal", 1, x.size * x.ring.bytes, payload=x.shares)
     return x.shares[0] ^ x.shares[1] ^ x.shares[2]
 
 
@@ -227,14 +227,14 @@ def mul(x: AShare, y: AShare, prf: PRFSetup) -> AShare:
     """Secret x secret multiply: 1 round, one ring element per party per lane
     (local cross terms + PRF zero share, then the resharing hop)."""
     z = _gate(x, y, prf, boolean=False)
-    log_comm("mul", 1, x.size * x.ring.bytes)
+    log_comm("mul", 1, x.size * x.ring.bytes, payload=z)
     return AShare(z)
 
 
 def and_(x: BShare, y: BShare, prf: PRFSetup) -> BShare:
     """Secret AND (bitwise over 32-bit lanes): 1 round, 32 bits per lane/party."""
     z = _gate(x, y, prf, boolean=True)
-    log_comm("and", 1, x.size * x.ring.bytes)
+    log_comm("and", 1, x.size * x.ring.bytes, payload=z)
     return BShare(z)
 
 

@@ -20,12 +20,17 @@ Each kernel is a CUDA C++ source in ``csrc/`` with a plain C entry point.
 :func:`library` builds them at first use — one ``nvcc`` per source for
 ``sm_90a``, all started together, linked into one shared library — from the
 checkout's sources alone into ``kernels/_build/`` (ignored by git), and loads
-it with ``ctypes``. Each wrapper (``rss_gate.gate``,
-``shuffle_gather.gather_hop``, ``ks_prefix.ks_prefix`` / ``and_fold``,
-``a2b_fused.a2b_kernel`` / ``bit2a_kernel``, ``bitonic_stage.stage_swap``)
-launches its kernel for a CUDA tensor and runs its plain PyTorch version for
-a CPU tensor; it records one launch in :func:`launch_counts` where it
-launches its kernel, and nowhere else.
+it with ``ctypes``. A build holds an exclusive ``flock`` on
+``_build/build.lock`` from the staleness check through the link, so
+processes that start together (the runtime's three party processes) build
+the library once and never link another's half-written object. Each
+wrapper (``rss_gate.gate``, ``shuffle_gather.gather_hop``,
+``ks_prefix.ks_prefix`` / ``and_fold``, ``a2b_fused.a2b_kernel`` /
+``bit2a_kernel``, ``bitonic_stage.stage_swap``) launches its kernel for a
+CUDA tensor and runs its plain PyTorch version for a CPU tensor; it records one launch in :func:`launch_counts` where it
+launches its kernel, and nowhere else. The counts are kept under a lock:
+the runtime's loopback mesh runs three party engines on threads of one
+process.
 
 Batched execution
 -----------------
@@ -55,6 +60,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -89,6 +95,7 @@ _LIB_NAME = "librepro_torch_kernels.so"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 
 _LAUNCHES: Counter = Counter()
+_LAUNCH_LOCK = threading.Lock()
 _LOCK = threading.Lock()
 _LIB = None
 _STATE = threading.local()
@@ -112,15 +119,18 @@ def override_fusion(enabled: Optional[bool]) -> Iterator[None]:
 
 
 def record_launch(kind: str) -> None:
-    _LAUNCHES[kind] += 1
+    with _LAUNCH_LOCK:
+        _LAUNCHES[kind] += 1
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(_LAUNCHES)
+    with _LAUNCH_LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES.clear()
+    with _LAUNCH_LOCK:
+        _LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -138,14 +148,22 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile every ``csrc/*.cu`` (in parallel) and link one shared library.
     Reuses an existing library that is newer than every source. The
-    compiler's ``-Xptxas -v`` report is kept in ``kernels/_build/ptxas.log``."""
+    compiler's ``-Xptxas -v`` report is kept in ``kernels/_build/ptxas.log``.
+    Processes serialise on an exclusive lock over the whole build, so a
+    process that waited finds the library its predecessor built."""
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        return _build_locked()
+
+
+def _build_locked() -> Path:
     sources = sorted(_CSRC.glob("*.cu"))
     headers = sorted(_CSRC.glob("*.cuh"))
     lib = _BUILD / _LIB_NAME
     newest = max(p.stat().st_mtime for p in sources + headers)
     if lib.exists() and lib.stat().st_mtime >= newest:
         return lib
-    _BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     objs = [_BUILD / (src.stem + ".o") for src in sources]
     procs = [
@@ -168,7 +186,7 @@ def build() -> Path:
     (_BUILD / "ptxas.log").write_text("\n".join(logs))
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
-    tmp = _BUILD / f".{_LIB_NAME}.{os.getpid()}"
+    tmp = _BUILD / f".{_LIB_NAME}.tmp"
     link = subprocess.run(
         [nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
         stdout=subprocess.PIPE,

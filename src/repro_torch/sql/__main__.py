@@ -2,6 +2,16 @@
 
     python -m repro_torch.sql --check [--device cpu]   # goldens + execution checks
     python -m repro_torch.sql [--device cpu] "SELECT ..." # print the compiled plan
+    python -m repro_torch.sql --explain ["SQL"]        # plan tree + cost estimates
+    python -m repro_torch.sql --explain-analyze ["SQL"]
+                                       # execute on synthetic HealthLNK data:
+                                       # estimates vs actuals per node
+    python -m repro_torch.sql --explain-analyze --networked ["SQL"]
+                                       # the same, executed by three parties
+                                       # on a loopback mesh (ReflexClient)
+    python -m repro_torch.sql --explain-analyze --networked --trace-out PATH ["SQL"]
+                                       # also write the merged distributed
+                                       # trace (JSONL + Chrome trace JSON)
 
 The CLI runs on ``cuda`` unless ``--device cpu`` asks for the CPU, and
 raises where there is no card. ``--check`` has three parts:
@@ -16,10 +26,10 @@ raises where there is no card. ``--check`` has three parts:
    sort-merge join forced (over a catalog that declares each table's pid
    bound), must reveal the same rows as the oracle.
 
-It exits non-zero on any mismatch. ``--explain`` and ``--explain-analyze``
-run through the client of the multi-party runtime, which the port does not
-have yet (``repro_torch.obs.explain_text`` itself is ported): they say so
-and exit 2.
+It exits non-zero on any mismatch. ``--explain`` / ``--explain-analyze``
+with no SQL run every golden query; their text is the reference's
+(``python -m repro.sql``) for the same data and key, but for the measured
+seconds.
 """
 from __future__ import annotations
 
@@ -129,6 +139,67 @@ def _walk_nodes(plan):
         yield from _walk_nodes(c)
 
 
+def explain(argv, analyze: bool, device) -> int:
+    """EXPLAIN [ANALYZE] the given SQL — or every golden query when no SQL is
+    given — against ``generate_healthlnk(n=16, seed=3, aspirin_frac=0.5)``
+    with engine key seed 2, as the reference's CLI does. With
+    ``--networked``, EXPLAIN ANALYZE executes on a 3-party loopback mesh
+    through :class:`~repro_torch.runtime.ReflexClient` (actuals come from
+    real wire exchanges). ``--trace-out PATH`` (ANALYZE only) runs the
+    queries under a tracer and writes the trace — in networked mode the
+    merged distributed trace with all three parties' spans — as JSONL to
+    PATH, plus a Chrome trace-event file at PATH + ".chrome.json"."""
+    import contextlib
+
+    from ..core import threefry
+    from ..data.healthlnk import generate_healthlnk
+    from ..data.queries import all_query_sql
+    from ..obs import trace as obs_trace
+    from ..obs.distributed import write_chrome_trace
+    from ..runtime import ReflexClient
+
+    networked = "--networked" in argv
+    argv = [a for a in argv if a != "--networked"]
+    trace_out = None
+    if "--trace-out" in argv:
+        i = argv.index("--trace-out")
+        if i + 1 >= len(argv):
+            print("--trace-out requires a PATH argument")
+            return 1
+        trace_out = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+    tables, _ = generate_healthlnk(n=16, seed=3, aspirin_frac=0.5, device=device)
+    if networked:
+        client = ReflexClient.networked(tables, key_seed=2, device=device)
+    else:
+        client = ReflexClient.in_process(tables, key=threefry.PRNGKey(2), device=device)
+    queries = {"query": " ".join(argv)} if argv else all_query_sql()
+    tracer = obs_trace.Tracer() if (trace_out and analyze) else None
+    failures = 0
+    try:
+        with tracer if tracer is not None else contextlib.nullcontext():
+            for name, sql_text in queries.items():
+                try:
+                    if analyze:
+                        text, _res = client.explain_analyze("explain-cli", sql_text)
+                    else:
+                        text = client.explain(sql_text)
+                except Exception as e:  # noqa: BLE001 — report and keep going
+                    print(f"FAIL {name}: {type(e).__name__}: {e}")
+                    failures += 1
+                    continue
+                print(text)
+                print()
+    finally:
+        client.close()
+    if tracer is not None:
+        with open(trace_out, "w") as f:
+            f.write(tracer.to_jsonl())
+        write_chrome_trace(trace_out + ".chrome.json", tracer.spans, trace_id=tracer.trace_id)
+        print(f"trace: {len(tracer.spans)} spans -> {trace_out} (+ {trace_out}.chrome.json)")
+    return 1 if failures else 0
+
+
 def main(argv) -> int:
     from ..config import resolve_device
 
@@ -146,9 +217,7 @@ def main(argv) -> int:
         del argv[i:i + 2]
     device = resolve_device(device)
     if argv and argv[0] in ("--explain", "--explain-analyze"):
-        print(f"{argv[0]} runs through the runtime's client (runtime/), which "
-              "repro_torch does not have yet")
-        return 2
+        return explain(argv[1:], analyze=argv[0] == "--explain-analyze", device=device)
     if argv and argv[0] == "--check":
         return check(device)
     from .compile import compile_query

@@ -600,3 +600,51 @@ def test_background_provisioner_on_cuda(cuda, tmp_path):
     finally:
         svc.close()
     _assert_same_results(got, want)
+
+
+def _net_summary(res):
+    """A networked result's output shares, per-node ledger, S and rows."""
+    return (
+        {k: res.table.col(k).shares.cpu().numpy().tolist() for k in res.table.cols},
+        res.table.valid.shares.cpu().numpy().tolist(),
+        [(s.node, s.n_ins, s.n_out, s.rounds, s.bytes_per_party, s.extra.get("s")) for s in res.report.nodes],
+        {k: np.asarray(v).tolist() for k, v in res.rows.items()},
+    )
+
+
+def test_loopback_mesh_on_cuda_equals_cpu(cuda):
+    """Three party threads on the card (a loopback mesh) give the shares,
+    per-node ledger, S and rows of three party threads on the CPU, with wire
+    bytes equal to ledger bytes and every kernel launch three times one
+    in-process run's."""
+    from repro_torch.core import threefry
+    from repro_torch.data import QUERY_SQL, generate_healthlnk
+    from repro_torch.runtime import ReflexClient
+
+    queries = ("dosage_study", "med_dosage_sum", "comorbidity")
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        tables, _ = generate_healthlnk(n=48, seed=3, aspirin_frac=0.5, device=dev)
+        with ReflexClient.networked(tables, key_seed=2, device=dev) as net:
+            got = []
+            for q in queries:
+                got.append(_net_summary(net.submit("t", QUERY_SQL[q])))
+                for a in net.service.engine.last_wire_audit:
+                    assert a["wire_bytes"] == a["exchange_bytes"] == a["ledger_bytes"]
+                    assert a["payload_exchanges"] > 0
+            runs[dev.type] = got
+    assert runs["cuda"] == runs["cpu"]
+    # launches: networked = 3 x in-process, query by query
+    tables, _ = generate_healthlnk(n=48, seed=3, aspirin_frac=0.5, device=cuda)
+    local = ReflexClient.in_process(tables, key=threefry.PRNGKey(2), offline="off", device=cuda)
+    with ReflexClient.networked(tables, key_seed=2, device=cuda) as net:
+        for q in queries:
+            counts = []
+            for client in (local, net):
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                client.submit("t", QUERY_SQL[q])
+                torch.cuda.synchronize()
+                counts.append(launch_counts())
+            assert counts[1] == {k: 3 * v for k, v in counts[0].items()} and counts[0]
+    local.close()

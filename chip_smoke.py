@@ -60,7 +60,8 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
    the fused and on the gate-by-gate path, one join tile, and the largest
    shuffle hop;
 6. batched execution: ``Engine.execute_batch`` of K = 4 copies of the
-   sort-merge ``dosage_study`` (n rows per table, Beta(2,6) Resizers,
+   sort-merge ``dosage_study`` (n = 4,096 rows per table, half of phase
+   3's, as in phases 8 and 9; Beta(2,6) Resizers,
    ``bucket_fn`` the next power of two), each slot against a serial
    ``execute`` of one engine with the same key: stacked and split node
    counts, every slot's shares, per-node ledger, S and rows identical to
@@ -75,7 +76,7 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
    ``obs.Tracer``: the span count, every span through
    ``redact.assert_emittable``, the ``node[...]`` spans' seconds summing to
    the report's total, and ``ExecutionReport.from_dict(to_dict())``;
-8. the service: ``AnalyticsService`` over the same n rows per table and
+8. the service: ``AnalyticsService`` over phase 6's n rows per table and
    the catalog of phase 3's sort-merge runs, with its defaults (Shrinkwrap's
    TLap noise, parallel addition, cost-based placement, the escalating
    accountant), the offline pool on and durable state in a temporary
@@ -105,9 +106,38 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
    three party processes on the card, a ``connect_tcp`` client's
    ``dosage_study`` equals the loopback mesh's and the launcher exits 0;
    then ``python -m repro_torch.sql --explain-analyze --networked`` on one
-   golden exits 0 and writes its trace.
+   golden exits 0 and writes its trace;
+10. ring-64 and sort&cut: the five 64-bit builds (``rss_gate`` in both
+    modes, ``ks_prefix`` and ``a2b_fused`` at widths 64 and 18,
+    ``and_fold`` at widths 64 and 32, ``bit2a_fused``) against their plain
+    versions on int64 planes at 2^24 lanes and at 2^24 + 1 (the scalar
+    path), each one launch of its ``_u64`` build and none of the 32-bit
+    one, max_abs_err 0, and ``shuffle_gather`` and ``bitonic_swap``
+    refusing an int64 plane; then the ring-64 circuits ``lt_public``,
+    ``lt``, ``eq``, ``ks_add``, ``a2b``, ``b2a`` (over 2^18 values, 2^24
+    bit lanes), ``bit2a``, ``mul`` and ``and_`` over 2^24 lanes of 64-bit
+    values shared with ``ring=RING64``, fused and gate by gate: identical
+    shares and ledgers, the answers of numpy ``uint64``, each path's
+    launches exactly as listed in ``RING64_CIRCUITS``, with seconds; at
+    n = 4,096 every circuit identical on cuda and cpu on both paths; the
+    64-bit builds timed at those shapes as phase 4 times the 32-bit ones;
+    then the paper's four Resizer modes (``benchmarks/bench_healthlnk.py:38-45``:
+    no Resizer; sort&cut, TLap(eps=0.5, delta=5e-5, sensitivity=n/8) with
+    sequential addition and ``use_sort=True``; Reflex, the same noise with
+    parallel addition; revealed, ``RevealNoise``; placement
+    ``all_internal``, ``bucket_fn`` the next power of two) over the
+    sort-merge ``dosage_study`` and ``aspirin_count`` at n rows per table
+    and phase 3's catalog, and the product-join ``dosage_study`` under
+    sort&cut at n=512 (at n=8192 its join's sort&cut Resize would pad to
+    2^26 rows), each answer the oracle's, with seconds, the heaviest node,
+    peak memory and each Resize's (S, n), a sort&cut Resize's n padded to
+    a power of two; then the n=48 quickstart plan under sort&cut identical
+    on cuda and cpu and gate by gate.
 
-The kernels line's launches sum phases 3, 6, 8 and 9. The lines before the
+The kernels line's launches sum phases 3, 6, 8, 9 and 10's sort&cut runs;
+the nested ``"u64"`` object of each kernel with a 64-bit build holds that
+build's error, times and bound from phase 10 and its launches over phase
+10's ring-64 circuits. The lines before the
 last are the ``{"kernels": [...]}`` summary and the
 card's name and power limit from ``nvidia-smi``; the last line is
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes the details as JSON.
@@ -134,6 +164,11 @@ INT32_OPS_PER_S = 33.5e12
 
 # the full-size run: rows in each healthlnk table (2,048 patients)
 ROWS_PER_TABLE = 8192
+# rows per table of phases 6, 8 and 9 (batch, service, networked runtime):
+# half of the full size, so that the whole script stays well inside its
+# time limit on the slower hosts the card comes with (their host-bound nodes
+# take up to 1.6x as long)
+LATER_ROWS = 4096
 # three_join's rows per table: its second and third product joins hold about
 # S1 * n/4 and S2 * n/4 rows (S: the Resize sizes), which grow as n^3 and n^4
 THREE_JOIN_ROWS = 512
@@ -187,6 +222,10 @@ PATH_KERNELS = {
     # the sort-merge join at fanout > 1: the union sort (bitonic_swap), the
     # rank (bit2a_fused, a2b_fused) and the payload's gather (shuffle_gather)
     "sortmerge": _RESIZED + ("bit2a_fused", "bitonic_swap"),
+    # sort&cut Resizers with sequential addition: the filler count
+    # (bit2a_fused, a2b_fused), the keep-bit sort (bitonic_swap) and the
+    # payload's move by the sorted index (shuffle_gather)
+    "sortcut": _RESIZED + ("bit2a_fused", "bitonic_swap"),
 }
 # the goldens with joins that phases 2 and 3 also compile from SQL with the
 # sort-merge join forced
@@ -518,16 +557,22 @@ def sortmerge_plan(query: str, tables: dict, plain: dict, join_algo: str = "sort
     Resizers (``noise``, default Beta(2,6)) on every internal operator, over
     a catalog that declares each table's observed pid bound (the sort-merge
     join needs a declared bound on its build side's key)."""
-    import numpy as np
-
     from repro_torch.core.noise import BetaNoise
     from repro_torch.data import QUERY_SQL
-    from repro_torch.sql import Catalog, compile_query
+    from repro_torch.sql import compile_query
+
+    return compile_query(QUERY_SQL[query], pid_catalog(tables, plain), placement="all_internal",
+                         noise=noise or BetaNoise(2, 6), join_algo=join_algo)
+
+
+def pid_catalog(tables: dict, plain: dict):
+    """The tables' catalog declaring each table's observed pid bound."""
+    import numpy as np
+
+    from repro_torch.sql import Catalog
 
     mult = {t: {"pid": int(np.bincount(cols["pid"]).max())} for t, cols in plain.items()}
-    catalog = Catalog.from_tables(tables, multiplicity=mult)
-    return compile_query(QUERY_SQL[query], catalog, placement="all_internal", noise=noise or BetaNoise(2, 6),
-                         join_algo=join_algo)
+    return Catalog.from_tables(tables, multiplicity=mult)
 
 
 def post_order(plan):
@@ -1148,7 +1193,6 @@ def service_phase(dev, n: int) -> dict:
     line; every kernel must have launched."""
     import tempfile
 
-    import numpy as np
     import torch
 
     from repro_torch.core.crt import crt_rounds
@@ -1158,11 +1202,9 @@ def service_phase(dev, n: int) -> dict:
     from repro_torch.errors import BudgetRefused
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.service import PrivacyAccountant
-    from repro_torch.sql import Catalog
 
     tables, plain = generate_healthlnk(n=n, seed=0, device=dev)
-    mult = {t: {"pid": int(np.bincount(cols["pid"]).max())} for t, cols in plain.items()}
-    catalog = Catalog.from_tables(tables, multiplicity=mult)
+    catalog = pid_catalog(tables, plain)
     dosage = QUERY_SQL["dosage_study"]
     check(dosage_oracle(plain, 390) == plaintext_oracle("dosage_study", plain), "service: the rebind oracle is wrong")
     sequence = [("alice", "dosage_study", dosage, 390), ("bob", "aspirin_count", QUERY_SQL["aspirin_count"], None),
@@ -1430,18 +1472,15 @@ def runtime_phase(dev, n: int) -> dict:
     import os
     import tempfile
 
-    import numpy as np
     import torch
 
     import repro_torch.kernels as kernels
     from repro_torch.core import threefry
     from repro_torch.data import QUERY_SQL, generate_healthlnk
     from repro_torch.runtime import ReflexClient, connect_tcp
-    from repro_torch.sql import Catalog
 
     tables, plain = generate_healthlnk(n=n, seed=0, device=dev)
-    mult = {t: {"pid": int(np.bincount(cols["pid"]).max())} for t, cols in plain.items()}
-    catalog = Catalog.from_tables(tables, multiplicity=mult)
+    catalog = pid_catalog(tables, plain)
     out: dict = {"n": n, "runs": []}
     totals: dict = {}
     if dev.type == "cuda":
@@ -1778,6 +1817,425 @@ def time_bitonic(dev, rng, shapes: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 10. ring-64 (the five 64-bit builds) and the Resizer's sort&cut
+# ---------------------------------------------------------------------------
+
+# the kernels with a 64-bit build, as the launch counts name them (the
+# 64-bit launches count as "<name>_u64")
+WIDE_KERNELS = ("rss_gate", "ks_prefix", "and_fold", "a2b_fused", "bit2a_fused")
+RING64_LANES = 1 << 24
+RING64_ODD = (1 << 24) + 1  # odd: every 64-bit build's scalar path
+RING64_SMALL = 4096  # the cuda-against-cpu size
+# b2a turns each value into 64 bit lanes: 2^18 values are 2^24 bit lanes
+RING64_B2A_VALUES = 1 << 18
+# the circuits' launches per call: fused, and gate by gate (all rss_gate_u64)
+RING64_CIRCUITS = {
+    "lt_public": ({"ks_prefix_u64": 1}, 6),
+    "lt": ({"rss_gate_u64": 1, "ks_prefix_u64": 1}, 7),
+    "eq": ({"and_fold_u64": 1}, 6),
+    "ks_add": ({"rss_gate_u64": 1, "ks_prefix_u64": 1}, 7),
+    "a2b": ({"a2b_fused_u64": 1}, 14),
+    "b2a": ({"bit2a_fused_u64": 1}, 2),
+    "bit2a": ({"bit2a_fused_u64": 1}, 2),
+    "mul": ({"rss_gate_u64": 1}, 1),
+    "and": ({"rss_gate_u64": 1}, 1),
+}
+# the paper's four modes (benchmarks/bench_healthlnk.py:38-45) over the
+# sort-merge plans of phase 3, and the product-join run's cut size
+SORTCUT_QUERIES = ("dosage_study", "aspirin_count")
+SORTCUT_PRODUCT_ROWS = 512
+
+
+def words64(gen, shape, device):
+    """Random 64-bit ring words drawn on ``device`` by the generator
+    ``gen`` (two 32-bit halves; every bit pattern can occur)."""
+    import torch
+
+    hi = torch.randint(-2**31, 2**31, shape, generator=gen, device=device, dtype=torch.int64)
+    lo = torch.randint(0, 2**32, shape, generator=gen, device=device, dtype=torch.int64)
+    return (hi << 32) | lo
+
+
+def device_generator(device, seed: int):
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def max_abs_err64(a, b) -> int:
+    """Largest |a - b| over the unsigned ring words of two int64 tensors (on
+    the lanes that differ, at most 65,536 of them)."""
+    from repro_torch.core.ring import to_numpy
+
+    diff = a != b
+    if not bool(diff.any()):
+        return 0
+    ua, ub = to_numpy(a[diff][:1 << 16]), to_numpy(b[diff][:1 << 16])
+    return max(abs(int(x) - int(y)) for x, y in zip(ua, ub))
+
+
+def wide_cases(dev, gen, n: int) -> list:
+    """(name, label, kernel call, plain call) of each 64-bit build at ``n``
+    lanes: both rss_gate modes, ks_prefix and a2b at width 64 and at the
+    coin's width 18, and_fold at widths 64 and 32, bit2a."""
+    from repro_torch.kernels.a2b_fused import a2b_kernel, a2b_plain, bit2a_kernel, bit2a_plain
+    from repro_torch.kernels.ks_prefix import and_fold, and_fold_plain, fold_shifts, ks_prefix, ks_prefix_plain, ks_shifts
+    from repro_torch.kernels.rss_gate import gate, gate_plain
+
+    def w(*shape):
+        return words64(gen, shape, dev)
+
+    cases = []
+    for boolean in (True, False):
+        args = (w(3, n), w(3, n), w(3, n))
+        cases.append(("rss_gate", f"bool={int(boolean)}", lambda a=args, b=boolean: gate(*a, b),
+                      lambda a=args, b=boolean: gate_plain(*a, b)))
+    for width in (64, 18):
+        sh = ks_shifts(width)
+        args = (w(3, n), w(3, n), w(3, 2 * len(sh), n))
+        cases.append(("ks_prefix", f"width={width}", lambda a=args, sh=sh: ks_prefix(*a, sh),
+                      lambda a=args, sh=sh: ks_prefix_plain(*a, sh)))
+    for width in (64, 32):
+        sh = fold_shifts(width)
+        args = (w(3, n), w(3, len(sh), n))
+        cases.append(("and_fold", f"width={width}", lambda a=args, sh=sh: and_fold(*a, sh),
+                      lambda a=args, sh=sh: and_fold_plain(*a, sh)))
+    for width in (64, 18):
+        sh = ks_shifts(width)
+        args = (w(3, n), w(3, 2 * (1 + 2 * len(sh)), n))
+        cases.append(("a2b_fused", f"width={width}", lambda a=args, sh=sh: a2b_kernel(*a, sh),
+                      lambda a=args, sh=sh: a2b_plain(*a, sh)))
+    args = (w(3, n), w(3, 2, n))
+    cases.append(("bit2a_fused", "", lambda a=args: bit2a_kernel(*a), lambda a=args: bit2a_plain(*a)))
+    return cases
+
+
+def wide_kernel_checks(dev, gen) -> dict:
+    """Each 64-bit build against its plain version on the card at 2^24 lanes
+    and at an odd lane count; one launch of the ``_u64`` build, none of the
+    32-bit one; the 32-bit-only kernels refuse int64 planes."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.bitonic_stage import stage_swap
+    from repro_torch.kernels.shuffle_gather import shuffle_gather
+
+    errs = dict.fromkeys(WIDE_KERNELS, 0)
+    for n in (RING64_LANES, RING64_ODD):
+        for name, label, kernel, plain in wide_cases(dev, gen, n):
+            reset_launch_counts()
+            got = kernel()
+            torch.cuda.synchronize()
+            launched = launch_counts()
+            check(launched == {name + "_u64": 1}, f"{name} u64 {label} n={n} launched {launched}")
+            err = max_abs_err64(got, plain())
+            print(f"  {name + '_u64':<16} {label:<9} n={n:>9}  max_abs_err={err}")
+            check(err == 0, f"{name} u64 {label} n={n} differs from its plain version")
+            errs[name] = max(errs[name], err)
+            del got
+        torch.cuda.empty_cache()
+    reset_launch_counts()
+    wide = words64(gen, (3, 8, 2), dev)
+    for label, call in (("shuffle_gather", lambda: shuffle_gather(wide, torch.arange(8, device=dev))),
+                        ("bitonic_swap", lambda: stage_swap(wide[:, 0], wide, wide, wide))):
+        try:
+            call()
+        except TypeError as exc:
+            check("ring-32" in str(exc), f"{label} refused an int64 plane with {exc}")
+            print(f"  {label}: an int64 plane raises TypeError ({exc})")
+        else:
+            raise SmokeFailure(f"{label} took an int64 plane")
+    return errs
+
+
+def ring64_inputs(n: int, seed: int = 3):
+    """x, y: numpy uint64 values with the ring's edges (0, 2^63 - 1, 2^63,
+    2^64 - 1) and some equal lanes; c: a public constant at 2^63."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 2**64, n, dtype=np.uint64)
+    y = rng.integers(0, 2**64, n, dtype=np.uint64)
+    edges = np.array([0, 2**63 - 1, 2**63, 2**64 - 1], dtype=np.uint64)
+    x[:4], y[4:8] = edges, edges
+    y[8:n:7] = x[8:n:7]
+    return x, y, 2**63
+
+
+def ring64_circuits(dev, n: int):
+    """(name -> (call, plaintext answer)) of the ring-64 circuits over shares
+    of n values (b2a over n // 64 values: as many bit lanes)."""
+    import numpy as np
+
+    from repro_torch.core import circuits as c
+    from repro_torch.core import sharing as sh
+    from repro_torch.core import threefry
+    from repro_torch.core.prf import setup_prf
+    from repro_torch.core.ring import RING64
+
+    x, y, cst = ring64_inputs(n)
+    prf = setup_prf(threefry.PRNGKey(1))
+    xb = sh.share_b(x, threefry.PRNGKey(2), dev, RING64)
+    yb = sh.share_b(y, threefry.PRNGKey(3), dev, RING64)
+    xa = sh.share_a(x, threefry.PRNGKey(4), dev, RING64)
+    ya = sh.share_a(y, threefry.PRNGKey(5), dev, RING64)
+    small = max(n // 64, 1)
+    xs = sh.share_b(x[:small], threefry.PRNGKey(6), dev, RING64)
+    one = np.uint64(1)
+    return {
+        "lt_public": (lambda: c.lt_public(xb, cst, prf), x < np.uint64(cst)),
+        "lt": (lambda: c.lt(xb, yb, prf), x < y),
+        "eq": (lambda: c.eq(xb, yb, prf), x == y),
+        "ks_add": (lambda: c.ks_add(xb, yb, prf), x + y),
+        "a2b": (lambda: c.a2b(xa, prf), x),
+        "b2a": (lambda: c.b2a(xs, prf), x[:small]),
+        "bit2a": (lambda: c.bit2a(xb.and_public(1), prf), x & one),
+        "mul": (lambda: sh.mul(xa, ya, prf), x * y),
+        "and": (lambda: sh.and_(xb, yb, prf), x & y),
+    }
+
+
+def _ledger_tally(fn):
+    from repro_torch.core.ledger import CommLedger
+
+    with CommLedger() as led:
+        out = fn()
+    return out, [(e.op, e.rounds, e.bytes_per_party, e.count) for e in led.entries]
+
+
+def ring64_phase(dev, lanes: int = RING64_LANES) -> dict:
+    """The ring-64 circuits at ``lanes`` lanes on the card, fused and gate by
+    gate (identical shares and ledgers, answers equal to numpy uint64), the
+    launches of each; then n = 4,096 on the card and on the CPU. On the CPU
+    (a rehearsal) the launch checks are skipped: a CPU tensor launches
+    nothing."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.ring import to_numpy
+    from repro_torch.core.sharing import AShare, reveal_a, reveal_b
+    from repro_torch.kernels import launch_counts, override_fusion, reset_launch_counts
+
+    total: dict = {}
+    rows = {}
+    on_card = dev.type == "cuda"
+    with np.errstate(over="ignore"):
+        circuits = ring64_circuits(dev, lanes)
+    for name, (call, want) in circuits.items():
+        fused_launches, gate_launches = RING64_CIRCUITS[name]
+        runs = {}
+        for path, fuse in (("fused", True), ("gates", False)):
+            _sync(dev)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with override_fusion(fuse):
+                out, ledger = _ledger_tally(call)
+            _sync(dev)
+            seconds = time.perf_counter() - t0
+            launches = launch_counts()
+            reset_launch_counts()
+            expect = fused_launches if fuse else {"rss_gate_u64": gate_launches}
+            check(launches == expect or not on_card, f"ring-64 {name} {path}: launches {launches}, expected {expect}")
+            _add(total, launches)
+            runs[path] = (out, ledger, seconds, launches)
+        (fout, fled, fs, fl), (gout, gled, gs, gl) = runs["fused"], runs["gates"]
+        check(bool(torch.equal(fout.shares, gout.shares)), f"ring-64 {name}: fused and gate-by-gate shares differ")
+        check(fled == gled, f"ring-64 {name}: fused and gate-by-gate ledgers differ")
+        check(fout.shares.dtype == torch.int64, f"ring-64 {name}: the output is not int64")
+        opened = to_numpy(reveal_a(fout) if isinstance(fout, AShare) else reveal_b(fout))
+        check(bool((opened == want.astype(np.uint64)).all()), f"ring-64 {name}: the answer differs from numpy uint64")
+        print(f"  ring-64 {name:<9} {fout.size:>9} lanes: fused {fs:.4f} s {fl}, gate by gate {gs:.4f} s {gl}; "
+              f"shares and ledger identical, answer = numpy uint64")
+        rows[name] = {"lanes": fout.size, "fused_s": fs, "gates_s": gs, "fused_launches": fl, "gates_launches": gl}
+        del fout, gout, runs
+    del circuits
+    if on_card:
+        torch.cuda.empty_cache()
+        missing = [k for k in WIDE_KERNELS if not total.get(k + "_u64", 0)]
+        check(not missing, f"ring-64: {missing} never launched their 64-bit build")
+
+    # n = 4,096: identical on the card and on the CPU, both paths
+    with np.errstate(over="ignore"):
+        on = {"dev": ring64_circuits(dev, RING64_SMALL), "cpu": ring64_circuits(torch.device("cpu"), RING64_SMALL)}
+    for name in RING64_CIRCUITS:
+        for fuse in (True, False):
+            with override_fusion(fuse):
+                gout, gled = _ledger_tally(on["dev"][name][0])
+                cout, cled = _ledger_tally(on["cpu"][name][0])
+            check(bool((to_numpy(gout.shares) == to_numpy(cout.shares)).all()) and gled == cled,
+                  f"ring-64 {name} n={RING64_SMALL} {'fused' if fuse else 'gates'}: {dev.type} and cpu differ")
+    reset_launch_counts()
+    print(f"  ring-64 n={RING64_SMALL}: all {len(RING64_CIRCUITS)} circuits identical on {dev.type} and cpu (shares "
+          f"and ledger), fused and gate by gate")
+    return {"circuits": rows, "launches": total}
+
+
+def wide_cost(name: str, n: int, levels: int, boolean: bool = True) -> tuple:
+    """(bytes, 32-bit integer instructions) one call of a 64-bit build must
+    move and issue over n lanes: every input word read once, the output
+    written once (8 bytes a word); each 64-bit AND, XOR, add or shift is two
+    32-bit instructions, and a 64-bit multiply three (the low product,
+    widened, and the two cross halves: ``tools/sass_mix.py`` counts them in
+    the built library)."""
+    if name == "rss_gate":  # x, y, alpha in; z out. Per share word: 3 ANDs + 3 XORs, or 3 products + 3 sums
+        return 12 * 8 * n, 3 * (12 if boolean else 9 + 6) * n
+    if name == "bit2a_fused":  # 19 operations a share word, 6 of them products
+        return 96 * n, 3 * (6 * 3 + 13 * 2) * n
+    bytes_moved, ops = fused_cost(name, n, levels)
+    return 2 * bytes_moved, 2 * ops
+
+
+def time_wide(dev, gen) -> dict:
+    """The 64-bit builds at the ring-64 circuits' shapes (2^24 lanes, width
+    64), beside their plain versions and bounds, as phase 4 times the
+    32-bit ones."""
+    import torch
+
+    out: dict = {}
+    for name, label, kernel, plain in wide_cases(dev, gen, RING64_LANES):
+        if "width=18" in label or "width=32" in label:
+            continue
+        err = max_abs_err64(kernel(), plain())
+        check(err == 0, f"{name} u64 {label} differs from its plain version")
+        ms = median_ms(kernel)
+        plain_ms = median_ms(plain)
+        levels = {"ks_prefix": 6, "and_fold": 6, "a2b_fused": 6}.get(name, 0)
+        bytes_moved, ops = wide_cost(name, RING64_LANES, levels, "bool=1" in label)
+        bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
+        by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S else "operations"
+        out.setdefault(name, []).append({
+            "n": RING64_LANES, "label": label, "bytes": bytes_moved, "ops": ops, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err})
+        print(f"  {name + '_u64':<16} {label:<9} n={RING64_LANES}: {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+              f"{bound_ms:.4f} ms ({by}, {bytes_moved / 2**20:.1f} MiB, {ops / 1e9:.2f} G instructions), "
+              f"{100 * bound_ms / ms:.1f} % of the bound")
+        torch.cuda.empty_cache()
+    return out
+
+
+def sortcut_modes(n: int) -> dict:
+    """The paper's four modes (``benchmarks/bench_healthlnk.py:38-45``):
+    mode -> ResizerConfig, None for no Resizer."""
+    from repro_torch.core.noise import RevealNoise, TruncatedLaplace
+    from repro_torch.core.resizer import ResizerConfig
+
+    tlap = TruncatedLaplace(eps=0.5, delta=5e-5, sensitivity=n // 8)
+    return {
+        "fully_oblivious": None,
+        "sortcut": ResizerConfig(noise=tlap, addition="sequential", use_sort=True),
+        "reflex": ResizerConfig(noise=tlap, addition="parallel"),
+        "revealed": ResizerConfig(noise=RevealNoise()),
+    }
+
+
+def sortcut_plan(query: str, tables: dict, plain: dict, cfg, join_algo: str = "sortmerge"):
+    """``query`` from its SQL over phase 3's catalog, with ``cfg`` on every
+    internal operator (none when ``cfg`` is None)."""
+    from repro_torch.data import QUERY_SQL
+    from repro_torch.sql import compile_query
+
+    catalog = pid_catalog(tables, plain)
+    if cfg is None:
+        return compile_query(QUERY_SQL[query], catalog, placement="none", join_algo=join_algo)
+    return compile_query(QUERY_SQL[query], catalog, placement="all_internal", cfg_factory=lambda node: cfg,
+                         join_algo=join_algo)
+
+
+def sortcut_phase(dev, n: int, product_n: int) -> dict:
+    """The four modes over the sort-merge ``dosage_study`` and
+    ``aspirin_count`` at n rows per table (and the product-join
+    ``dosage_study`` at ``product_n`` under sort&cut), each answer equal to
+    the oracle; then the n=48 quickstart plan under sort&cut, identical on
+    cuda and cpu and gate by gate. On the CPU (a rehearsal) the launch
+    checks and the cross-device run are skipped."""
+    import torch
+
+    from repro_torch.core import threefry
+    from repro_torch.data import all_query_plans, generate_healthlnk, plaintext_oracle, revealed_answer
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.plan import insert_resizers
+
+    results, total = {}, {}
+    on_card = dev.type == "cuda"
+    data = {rows: generate_healthlnk(n=rows, seed=0, device=dev) for rows in (n, product_n)}
+    plans = []
+    for query in SORTCUT_QUERIES:
+        for mode, cfg in sortcut_modes(n).items():
+            tables, plain = data[n]
+            plans.append((f"{query} {mode}", query, n, sortcut_plan(query, tables, plain, cfg), mode))
+    cfg = sortcut_modes(product_n)["sortcut"]
+    plans.append((f"dosage_study sortcut, product join n={product_n}", "dosage_study", product_n,
+                  insert_resizers(all_query_plans()["dosage_study"], lambda node: cfg, placement="all_internal"),
+                  "sortcut"))
+    for label, query, rows, plan, mode in plans:
+        tables, plain = data[rows]
+        engine = Engine(tables, key=threefry.PRNGKey(5), bucket_fn=pow2, device=dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        _sync(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out, report = engine.execute(plan)
+        _sync(dev)
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        reset_launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+        got = revealed_answer(query, plan, out)
+        want = plaintext_oracle(query, plain)
+        check(got == want, f"{label}: the result {got} differs from the plaintext oracle {want}")
+        heavy = max(report.nodes, key=lambda s: s.seconds)
+        resizes = [(s.extra["s"], s.extra["n"]) for s in report.nodes if "s" in s.extra and "n" in s.extra]
+        if mode == "sortcut":
+            check(resizes and (launches.get("bitonic_swap", 0) > 0 or not on_card),
+                  f"{label}: no sort&cut Resize sorted ({launches})")
+            check(all(m & (m - 1) == 0 for _, m in resizes), f"{label}: a sort&cut Resize did not pad to 2^k")
+        size = got if isinstance(got, int) else len(got)
+        print(f"  {label}: {seconds:.3f} s, heaviest {heavy.node} {heavy.seconds:.3f} s, peak "
+              f"{peak / 2**30:.2f} GiB; Resize (S, padded n) {resizes}; answer {size} = oracle; launches {launches}")
+        _add(total, launches)
+        results[label] = {"query": query, "mode": mode, "n": rows, "seconds": seconds, "peak_bytes": peak,
+                          "heaviest": [heavy.node, heavy.seconds], "resizes": resizes, "launches": launches,
+                          "nodes": node_rows(report)}
+    if on_card:
+        for kernel in KERNELS:
+            check(total.get(kernel, 0) > 0, f"sort&cut runs: {kernel} never launched ({total})")
+        sortcut_cross_device(dev)
+    return {"runs": results, "launches": total}
+
+
+def sortcut_cross_device(dev) -> None:
+    """The n=48 quickstart plan with sort&cut Resizers on every internal
+    operator: identical on cuda and cpu, and gate by gate on cuda."""
+    import numpy as np
+
+    from repro_torch.core import threefry
+    from repro_torch.ops import SecretTable
+    from repro_torch.plan import insert_resizers
+
+    rng = np.random.default_rng(7)
+    n = 48
+    patients = {"pid": rng.integers(0, 12, n).astype(np.uint32), "icd9": rng.choice([390, 401, 414], n).astype(np.uint32)}
+    meds = {"pid2": rng.integers(0, 12, n).astype(np.uint32), "med": rng.choice([1, 2, 3], n).astype(np.uint32)}
+
+    def tables(d):
+        return {"diagnoses": SecretTable.from_plaintext(patients, threefry.PRNGKey(0), device=d),
+                "medications": SecretTable.from_plaintext(meds, threefry.PRNGKey(1), device=d)}
+
+    cfg = sortcut_modes(n)["sortcut"]
+    plan = insert_resizers(quickstart_plan("pid2"), lambda node: cfg, placement="all_internal")
+    out, report = three_ways(dev, "quickstart n=48 sort&cut", tables, plan, 42, "sortcut")
+    pids = sorted(set(out.reveal_true_rows()["pid"].tolist()))
+    check(pids == [1, 2, 4, 6, 8, 9, 11], f"quickstart sort&cut rows {pids}")
+    sizes = [(s.extra["s"], s.extra["n"]) for s in report.nodes if "s" in s.extra]
+    print(f"  quickstart n=48 sort&cut: shares, ledgers and (S, padded n)={sizes} identical on cuda and cpu (fused) "
+          f"and on cuda gate by gate; rows {pids}")
+
+
+# ---------------------------------------------------------------------------
 # 5. (--profile) device-time breakdown of the two heaviest operators
 # ---------------------------------------------------------------------------
 
@@ -1968,30 +2426,43 @@ def main(argv=None) -> int:
         print("[5] device-time breakdown (torch.profiler)")
         profiled = profile_phase(dev, shapes["distinct_rows"], shapes["hop"])
 
-    print(f"[6] batched execution: K={BATCH_SLOTS} slots of the sort-merge dosage_study at n={ROWS_PER_TABLE}")
+    print(f"[6] batched execution: K={BATCH_SLOTS} slots of the sort-merge dosage_study at n={LATER_ROWS}")
     from repro_torch.core.noise import RevealNoise
 
-    batch = batch_phase(dev, ROWS_PER_TABLE)
+    batch = batch_phase(dev, LATER_ROWS)
     # S = T in every slot: the slots stay stacked through the join and the
     # Distinct, so every kernel runs stacked
-    stacked = batch_phase(dev, ROWS_PER_TABLE, noise=RevealNoise())
+    stacked = batch_phase(dev, LATER_ROWS, noise=RevealNoise())
     batch_cross_device(dev)
 
     print(f"[7] tracing: the sort-merge dosage_study at n={ROWS_PER_TABLE} under a Tracer")
     traced = tracing_phase(dev, ROWS_PER_TABLE)
 
-    print(f"[8] the service: AnalyticsService over n={ROWS_PER_TABLE} rows per table, pool on, durable state")
-    service = service_phase(dev, ROWS_PER_TABLE)
+    print(f"[8] the service: AnalyticsService over n={LATER_ROWS} rows per table, pool on, durable state")
+    service = service_phase(dev, LATER_ROWS)
     service_cross_device(dev)
 
-    print(f"[9] the networked runtime: three parties on {dev} over n={ROWS_PER_TABLE} rows per table "
+    print(f"[9] the networked runtime: three parties on {dev} over n={LATER_ROWS} rows per table "
           f"(loopback threads, TCP processes, the SQL CLI)")
-    runtime = runtime_phase(dev, ROWS_PER_TABLE)
+    runtime = runtime_phase(dev, LATER_ROWS)
+
+    t10 = time.perf_counter()
+    print(f"[10] ring-64: the five 64-bit builds at {RING64_LANES} and {RING64_ODD} lanes, then the circuits")
+    wide_errs = wide_kernel_checks(dev, device_generator(dev, 10))
+    ring64 = ring64_phase(dev)
+    print("  64-bit builds timed at the circuits' shapes")
+    wide_timing = time_wide(dev, device_generator(dev, 11))
+    print(f"  sort&cut: the paper's four modes over the sort-merge {', '.join(SORTCUT_QUERIES)} at "
+          f"n={ROWS_PER_TABLE} (the product-join dosage_study at n={SORTCUT_PRODUCT_ROWS})")
+    sortcut = sortcut_phase(dev, ROWS_PER_TABLE, SORTCUT_PRODUCT_ROWS)
+    print(f"  phase 10 in {time.perf_counter() - t10:.1f} s")
 
     # launches on the main paths: phase 3's runs, phase 6's batches, phase
-    # 8's submits and batch, and phase 9's networked submits
+    # 8's submits and batch, phase 9's networked submits and phase 10's
+    # sort&cut runs; a 64-bit build's, phase 10's ring-64 circuits
     launches = {k: sum(r["launches"].get(k, 0) for r in full.values()) + batch["launches"].get(k, 0)
                 + stacked["launches"].get(k, 0) + service["launches"].get(k, 0) + runtime["launches"].get(k, 0)
+                + sortcut["launches"].get(k, 0)
                 for k in KERNELS}
     summary = {"kernels": []}
     for name, (source, tpu) in KERNELS.items():
@@ -1999,17 +2470,27 @@ def main(argv=None) -> int:
         # the row of the largest call: most lanes (rss_gate: arithmetic last),
         # or most bytes for the fused kernels
         top = max(rows, key=lambda r: (r.get("bytes", 0), r["n"], r.get("boolean", False)))
-        summary["kernels"].append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": tpu, "launches": launches[name],
             "max_abs_err": max(errs[name], *(r["max_abs_err"] for r in rows)),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top.get("library_ms"),
-        })
+        }
+        if name in WIDE_KERNELS:
+            # the largest call of the 64-bit build (rss_gate: arithmetic)
+            wrows = wide_timing[name]
+            wtop = max(wrows, key=lambda r: (r["bytes"], "bool=0" in r["label"]))
+            entry["u64"] = {
+                "max_abs_err": max(wide_errs[name], *(r["max_abs_err"] for r in wrows)),
+                "ms": wtop["ms"], "plain_ms": wtop["plain_ms"], "bound_ms": wtop["bound_ms"],
+                "bound_by": wtop["bound_by"], "launches": ring64["launches"].get(name + "_u64", 0),
+            }
+        summary["kernels"].append(entry)
     total_s = time.perf_counter() - t_all
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-               "n": ROWS_PER_TABLE, "three_join_n": THREE_JOIN_ROWS, "big_n": BIG_ROWS, "build_s": build_s, "total_s": total_s, "full": full,
+               "n": ROWS_PER_TABLE, "later_n": LATER_ROWS, "three_join_n": THREE_JOIN_ROWS, "big_n": BIG_ROWS, "build_s": build_s, "total_s": total_s, "full": full,
                "timing": timing, "profile": profiled, "batch": [batch, stacked], "tracing": traced, "service": service, "runtime": runtime,
-               "summary": summary}
+               "ring64": ring64, "wide_timing": wide_timing, "sortcut": sortcut, "summary": summary}
     print(f"total {total_s:.1f} s")
     if args.out:
         out = Path(args.out)

@@ -37,7 +37,6 @@ from ..kernels.a2b_fused import a2b_fused, bit2a_fused
 from ..kernels.ks_prefix import and_fold_fused, ks_levels_fused
 from .ledger import fused_scope
 from .prf import PRFSetup
-from .ring import s32
 from .sharing import AShare, BShare, and_, mul
 
 __all__ = [
@@ -209,13 +208,15 @@ def b2a(x: BShare, prf: PRFSetup, width: int | None = None) -> AShare:
     with fused_scope("b2a", rounds=2):
         planes = BShare(torch.stack([(x.shares >> j) & 1 for j in range(width)], dim=-1))
         bits_a = bit2a(planes, prf)
-        # 2^j as ring words (2^31 wraps to int32's minimum)
+        ring = x.ring
+        # 2^j as ring words (2^31 / 2^63 wrap to the storage type's minimum)
         weights = torch.tensor(
-            [s32(1 << j) for j in range(width)], dtype=torch.int32, device=x.device
+            [ring.word(1 << j) for j in range(width)], dtype=ring.dtype, device=x.device
         )
-        # products wrap in int32; the sum of width words cannot overflow int64
+        # products wrap in the storage type; an int64 sum wraps mod 2^64, and
+        # the sum of width int32 words cannot overflow it
         total = torch.sum(bits_a.shares * weights, dim=-1, dtype=torch.int64)
-        return AShare(total.to(torch.int32))
+        return AShare(total.to(ring.dtype))
 
 
 def a2b(x: AShare, prf: PRFSetup, width: int | None = None) -> BShare:

@@ -9,6 +9,11 @@ here are bit-identical to it (:mod:`.threefry`).
 ``pair_keys`` is a (3, 2) int32 tensor on the CPU: key derivation is a few
 words of host arithmetic, and only the draws run on the shares' device.
 
+Draws, zero sharings and replicated values take the ring (ring-32 unless
+asked). A ring-64 word is the 32-bit threefry word zero-extended, as the
+reference draws it (``jax.random.bits(..., dtype=uint32).astype(uint64)``):
+its high half is always zero.
+
 Folds, draws and zero sharings go through the ambient material source
 (:mod:`.material`) when one is installed, with the reference's op names and
 args, so a pool keyed by content serves either package. The derivations the
@@ -25,6 +30,7 @@ from typing import Tuple
 import torch
 
 from . import material, threefry
+from .ring import RING32, Ring
 
 __all__ = [
     "PRFSetup",
@@ -55,14 +61,15 @@ class PRFSetup:
         """:meth:`fold` without the material source (a circuit level's fold)."""
         return PRFSetup(_fold_keys(self.pair_keys, tag))
 
-    def draw(self, shape: Tuple[int, ...], device) -> torch.Tensor:
-        """F(k_i, .) for each pair key -> (3, *shape) int32 ring words."""
+    def draw(self, shape: Tuple[int, ...], device, ring: Ring = RING32) -> torch.Tensor:
+        """F(k_i, .) for each pair key -> (3, *shape) ``ring`` words."""
         shape = tuple(int(s) for s in shape)
         src = material.active_if_concrete(self.pair_keys)
         if src is None:
-            return _draw_bits(self.pair_keys, shape, device)
+            return _draw_bits(self.pair_keys, shape, device, ring)
         return src.fetch(
-            "draw", self.pair_keys, (shape, _RING_DTYPE), lambda: _draw_bits(self.pair_keys, shape, device)
+            "draw", self.pair_keys, (shape, ring.dtype_name),
+            lambda: _draw_bits(self.pair_keys, shape, device, ring),
         )
 
     def draw_uniform(self, shape: Tuple[int, ...], device) -> torch.Tensor:
@@ -76,18 +83,21 @@ class PRFSetup:
         )
 
 
-# the reference names the ring's dtype in its draw args: uint32 words
-_RING_DTYPE = "uint32"
-
-
 def _fold_keys(pair_keys: torch.Tensor, tag: int) -> torch.Tensor:
     return torch.stack([threefry.fold_in(k, tag) for k in pair_keys])
 
 
-def _draw_bits(pair_keys: torch.Tensor, shape: Tuple[int, ...], device) -> torch.Tensor:
-    out = torch.empty((3,) + shape, dtype=torch.int32, device=device)
+def widen(bits: torch.Tensor, ring: Ring) -> torch.Tensor:
+    """32-bit threefry words as ``ring`` words: ring-64 zero-extends them."""
+    if ring.bits == 32:
+        return bits
+    return bits.to(torch.int64) & 0xFFFFFFFF
+
+
+def _draw_bits(pair_keys: torch.Tensor, shape: Tuple[int, ...], device, ring: Ring = RING32) -> torch.Tensor:
+    out = torch.empty((3,) + shape, dtype=ring.dtype, device=device)
     for i, k in enumerate(pair_keys):
-        out[i] = threefry.bits(k, shape, device)
+        out[i] = widen(threefry.bits(k, shape, device), ring)
     return out
 
 
@@ -100,34 +110,34 @@ def setup_prf(key: torch.Tensor) -> PRFSetup:
     return PRFSetup(threefry.split(key, 3))
 
 
-def zero_share_unpooled(prf: PRFSetup, shape, device, xor: bool) -> torch.Tensor:
+def zero_share_unpooled(prf: PRFSetup, shape, device, xor: bool, ring: Ring = RING32) -> torch.Tensor:
     """A zero sharing without the material source (a gate's alpha)."""
-    f = _draw_bits(prf.pair_keys, tuple(int(s) for s in shape), device)
+    f = _draw_bits(prf.pair_keys, tuple(int(s) for s in shape), device, ring)
     g = torch.roll(f, 1, dims=0)
     return f ^ g if xor else f - g
 
 
-def _zero_share(prf: PRFSetup, shape, device, xor: bool) -> torch.Tensor:
+def _zero_share(prf: PRFSetup, shape, device, xor: bool, ring: Ring) -> torch.Tensor:
     shape = tuple(int(s) for s in shape)
     src = material.active_if_concrete(prf.pair_keys)
     if src is None:
-        return zero_share_unpooled(prf, shape, device, xor)
+        return zero_share_unpooled(prf, shape, device, xor, ring)
     return src.fetch(
-        "zero_xor" if xor else "zero_add", prf.pair_keys, (shape, _RING_DTYPE),
-        lambda: zero_share_unpooled(prf, shape, device, xor),
+        "zero_xor" if xor else "zero_add", prf.pair_keys, (shape, ring.dtype_name),
+        lambda: zero_share_unpooled(prf, shape, device, xor, ring),
     )
 
 
-def zero_share_add(prf: PRFSetup, shape, device) -> torch.Tensor:
+def zero_share_add(prf: PRFSetup, shape, device, ring: Ring = RING32) -> torch.Tensor:
     """(3, *shape) additive sharing of zero: alpha_i = F(k_i) - F(k_{i-1})."""
-    return _zero_share(prf, shape, device, xor=False)
+    return _zero_share(prf, shape, device, False, ring)
 
 
-def zero_share_xor(prf: PRFSetup, shape, device) -> torch.Tensor:
+def zero_share_xor(prf: PRFSetup, shape, device, ring: Ring = RING32) -> torch.Tensor:
     """(3, *shape) XOR sharing of zero: alpha_i = F(k_i) ^ F(k_{i-1})."""
-    return _zero_share(prf, shape, device, xor=True)
+    return _zero_share(prf, shape, device, True, ring)
 
 
-def rand_replicated(prf: PRFSetup, shape, device) -> torch.Tensor:
+def rand_replicated(prf: PRFSetup, shape, device, ring: Ring = RING32) -> torch.Tensor:
     """(3, *shape) canonical shares of a fresh random ring element (no comm)."""
-    return prf.draw(tuple(shape), device)
+    return prf.draw(tuple(shape), device, ring)

@@ -5,13 +5,21 @@ k beside the true-tuple column c) -> secure shuffle -> reveal-and-trim (open
 k, keep rows with k = 1; the only disclosure is the noisy size S = T + eta).
 A port of ``repro.core.resizer``: parallel (coin toss, both coin modes) and
 sequential (prefix count + one comparison) addition, bucketing (the
-config's multiple, or the engine's ``bucket_fn``), and the lazy payload
-trim. The sort&cut baseline (``use_sort``) is not ported yet.
+config's multiple, or the engine's ``bucket_fn``), the lazy payload trim,
+and Shrinkwrap's sort&cut baseline (``use_sort``).
 
 Lazy payload: :class:`~repro_torch.ops.table.LazyGather` columns (the lazy
 join's views) skip the physical shuffle; only the S kept rows are gathered
 from the base tables and re-randomized. Their shuffle traffic is still
 ledgered (``shuffle_deferred_payload``), as in the reference.
+
+Sort&cut (``ResizerConfig(use_sort=True)``, the paper's Shrinkwrap
+baseline): instead of the shuffle, a bitonic sort on the keep bit
+(descending) brings the kept rows to the front, so revealing the sorted k
+discloses only S. Lazy columns are materialised, the table is padded to a
+power of two (pad rows keep = 0), only the keep bit and a row index ride
+the network, and the payload moves once by the sorted index; the reveal
+and ``info["n"]`` count the padded rows.
 """
 from __future__ import annotations
 
@@ -50,9 +58,12 @@ class ResizerConfig:
     coin_mode: str = "corrected"  # "corrected" | "paper"
     bucket: int = 1  # round the trimmed size up to a multiple of this
     paper_round_model: bool = False  # ledger sequential Alg.1 as N rounds
+    use_sort: bool = False  # Shrinkwrap "sort&cut" baseline: bitonic sort on
+    # the keep bit instead of the secure shuffle (O(log^2 N) rounds vs O(1))
 
     def describe(self) -> str:
-        return f"rho({self.noise.name},{self.addition})"
+        tag = "sortcut" if self.use_sort else self.addition
+        return f"rho({self.noise.name},{tag})"
 
 
 class Resizer:
@@ -124,18 +135,23 @@ class Resizer:
         else:
             raise ValueError(cfg.addition)
 
-        # 3. break linkage. BShare-backed lazy (join-view) columns skip the
-        #    physical shuffle; their traffic is still ledgered below.
+        # 3. break linkage: the secure shuffle, or sort&cut's bitonic sort
+        #    on the keep bit. BShare-backed lazy (join-view) columns skip the
+        #    physical shuffle (their traffic is still ledgered below); sort&cut
+        #    materialises them.
         lazy_cols = {
             name: c
             for name, c in table.cols.items()
-            if isinstance(c, LazyGather) and isinstance(c.base, BShare)
+            if isinstance(c, LazyGather) and isinstance(c.base, BShare) and not cfg.use_sort
         }
         cols = {"__k": k_col, "__valid": table.valid}
         cols.update(
             {name: table.bshare_col(name, prf) for name in table.cols if name not in lazy_cols}
         )
-        shuffled = secure_shuffle(cols, prf.fold(821))
+        if cfg.use_sort:
+            shuffled, n = _sort_and_cut(cols, prf)
+        else:
+            shuffled = secure_shuffle(cols, prf.fold(821))
         if lazy_cols:
             lazy_row_bytes = sum(
                 c.ring.bytes * (c.size // max(c.shape[0], 1)) for c in lazy_cols.values()
@@ -170,3 +186,18 @@ class Resizer:
 
         info = {"n": n, "t": t, "s": s, "s_padded": s_padded, **info_noise}
         return out, info
+
+
+def _sort_and_cut(cols: Dict[str, BShare], prf: PRFSetup) -> Tuple[Dict[str, BShare], int]:
+    """Shrinkwrap's cut order: pad to a power of two (pad rows keep = 0,
+    valid = 0), then sort descending on the keep bit, so the kept rows come
+    first; only the keep bit and a row index ride the network, the payload
+    moves once after it. Returns the sorted columns and the padded rows."""
+    from ..ops.groupby import pad_pow2
+    from .sort import bitonic_sort_narrow
+
+    payload = {name: c for name, c in cols.items() if name not in ("__k", "__valid")}
+    padded = pad_pow2(SecretTable(payload, cols["__valid"]))
+    sorted_cols = {"__k": cols["__k"].pad_rows(padded.n), "__valid": padded.valid}
+    sorted_cols.update(padded.cols)
+    return bitonic_sort_narrow(sorted_cols, "__k", prf.fold(821), descending=True), padded.n

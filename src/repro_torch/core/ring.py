@@ -1,13 +1,15 @@
-"""The ring Z_{2^32} on ``int32`` storage.
+"""The rings Z_{2^32} and Z_{2^64} on ``int32`` / ``int64`` storage.
 
-PyTorch has no ``+`` or shifts for ``uint32`` on the CPU, so ring words are
-stored as ``int32``: addition, subtraction and multiplication wrap mod 2^32
-exactly as the unsigned ring does, and XOR / AND / left shift act on the same
-bit pattern. Right shifts differ on signed storage and are done here by hand
-(:func:`srl`, masked); an unsigned order is the signed order after flipping
-bit 31 (as ``threefry.permutation`` sorts its keys).
+PyTorch has no ``+`` or shifts for ``uint32`` / ``uint64`` on the CPU, so ring
+words are stored as the signed type of the same width: addition,
+subtraction and multiplication wrap mod 2^k exactly as the unsigned ring
+does, and XOR / AND / left shift act on the same bit pattern. Right shifts
+differ on signed storage and are done here by hand (:func:`srl`, masked); an
+unsigned order is the signed order after flipping the top bit (bit 31 or
+63, as ``threefry.permutation`` sorts its keys). The storage dtype names
+the ring (:func:`ring_of`), as the reference's ``uint32`` / ``uint64`` do.
 
-Public entry and exit points take and return numpy ``uint32``
+Public entry and exit points take and return numpy ``uint32`` / ``uint64``
 (:func:`from_numpy` / :func:`to_numpy`).
 """
 from __future__ import annotations
@@ -20,8 +22,12 @@ import torch
 __all__ = [
     "Ring",
     "RING32",
+    "RING64",
     "MASK32",
+    "ring_of",
+    "ring_named",
     "s32",
+    "s64",
     "srl",
     "from_numpy",
     "to_numpy",
@@ -33,7 +39,7 @@ _SIGN = 1 << 31
 
 @dataclasses.dataclass(frozen=True)
 class Ring:
-    """Z_{2^bits}; only ring-32 is ported."""
+    """Z_{2^bits}, for 32 and 64 bits."""
 
     bits: int = 32
 
@@ -45,8 +51,40 @@ class Ring:
     def bytes(self) -> int:
         return self.bits // 8
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The storage dtype: int32 or int64."""
+        return torch.int32 if self.bits == 32 else torch.int64
+
+    @property
+    def np_dtype(self):
+        return np.uint32 if self.bits == 32 else np.uint64
+
+    @property
+    def dtype_name(self) -> str:
+        """The reference's name of its ring dtype (``uint32`` / ``uint64``)."""
+        return "uint32" if self.bits == 32 else "uint64"
+
+    def word(self, value: int) -> int:
+        """A Python int wrapped mod 2^bits into the storage type's range."""
+        return s32(value) if self.bits == 32 else s64(value)
+
 
 RING32 = Ring(32)
+RING64 = Ring(64)
+
+
+def ring_of(x: torch.Tensor) -> Ring:
+    """The ring whose words ``x`` stores (by its dtype, as the reference
+    tells ``uint32`` from ``uint64``)."""
+    return RING64 if x.dtype == torch.int64 else RING32
+
+
+def ring_named(name: str) -> Ring:
+    """The ring of a reference dtype name (``"uint32"`` / ``"uint64"``)."""
+    if name not in ("uint32", "uint64"):
+        raise ValueError(f"no ring stores {name!r}")
+    return RING64 if name == "uint64" else RING32
 
 
 def s32(value: int) -> int:
@@ -55,21 +93,31 @@ def s32(value: int) -> int:
     return value - (1 << 32) if value & _SIGN else value
 
 
+def s64(value: int) -> int:
+    """A Python int wrapped mod 2^64 into int64's range (the storage value)."""
+    value &= (1 << 64) - 1
+    return value - (1 << 64) if value >> 63 else value
+
+
 def srl(x: torch.Tensor, n: int) -> torch.Tensor:
-    """Logical right shift of int32-stored ring words."""
+    """Logical right shift of int32- or int64-stored ring words."""
+    bits = 64 if x.dtype == torch.int64 else 32
     if n == 0:
         return x
-    if n >= 32:
+    if n >= bits:
         return torch.zeros_like(x)
-    return (x >> n) & ((1 << (32 - n)) - 1)
+    return (x >> n) & ((1 << (bits - n)) - 1)
 
 
-def from_numpy(x, device) -> torch.Tensor:
-    """numpy (u)int array -> int32 ring words on ``device`` (wrapping)."""
-    arr = np.ascontiguousarray(np.asarray(x).astype(np.uint32))
-    return torch.from_numpy(arr.view(np.int32)).to(device)
+def from_numpy(x, device, ring: Ring = RING32) -> torch.Tensor:
+    """numpy (u)int array -> ``ring``'s words on ``device`` (wrapping mod
+    2^bits; ``uint64`` is viewed as ``int64``)."""
+    arr = np.ascontiguousarray(np.asarray(x).astype(ring.np_dtype))
+    signed = np.int32 if ring.bits == 32 else np.int64
+    return torch.from_numpy(arr.view(signed)).to(device)
 
 
 def to_numpy(x: torch.Tensor) -> np.ndarray:
-    """int32 ring words -> numpy uint32 on the host."""
-    return x.detach().to("cpu").contiguous().numpy().view(np.uint32)
+    """Ring words -> numpy ``uint32`` (int32 storage) or ``uint64`` (int64)."""
+    arr = x.detach().to("cpu").contiguous().numpy()
+    return arr.view(np.uint64 if x.dtype == torch.int64 else np.uint32)

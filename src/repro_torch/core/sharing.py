@@ -1,10 +1,12 @@
-"""3-party replicated secret sharing (RSS) over Z_{2^32} in PyTorch.
+"""3-party replicated secret sharing (RSS) over Z_{2^k} in PyTorch.
 
 A secret ``x`` is the canonical share triple ``(s0, s1, s2)`` in a leading
 axis of size 3, with ``x = s0 + s1 + s2`` (:class:`AShare`) or
 ``x = s0 ^ s1 ^ s2`` (:class:`BShare`), as ``repro.core.sharing``. Shares are
-int32 tensors (ring words; see :mod:`.ring`). Every protocol runs the same
-message pattern as the reference and logs the same ledger entries.
+int32 tensors (ring-32, the default) or int64 tensors (ring-64, from
+``share_a`` / ``share_b(..., ring=RING64)``); the dtype names the ring (see
+:mod:`.ring`). Every protocol runs the same message pattern as the
+reference and logs the same ledger entries, ``ring.bytes`` a lane.
 
 ``mul`` / ``and_`` — the only interactive gates — broadcast their operands,
 draw the zero sharing at the broadcast shape, and go through the
@@ -22,8 +24,8 @@ import torch.utils._pytree as pytree
 from ..kernels.rss_gate import gate
 from . import threefry
 from .ledger import log_comm
-from .prf import PRFSetup, zero_share_unpooled
-from .ring import RING32, Ring, from_numpy, s32, srl
+from .prf import PRFSetup, widen, zero_share_unpooled
+from .ring import RING32, Ring, from_numpy, ring_of, srl
 
 __all__ = [
     "AShare",
@@ -40,19 +42,22 @@ __all__ = [
 ]
 
 
-def _as_ring(c, device):
-    """A public constant as ring words: a Python int wraps to an int32
-    scalar; arrays and tensors become int32 tensors on ``device``."""
+def _as_ring(c, device, ring: Ring):
+    """A public constant as ``ring`` words: a Python int wraps mod 2^k to a
+    scalar of the storage type; arrays and tensors become tensors of the
+    storage dtype on ``device`` (int32 words widen as unsigned words)."""
     if isinstance(c, int):
-        return s32(c)
+        return ring.word(c)
     if isinstance(c, torch.Tensor):
-        return c.to(device=device, dtype=torch.int32)
-    return from_numpy(c, device)
+        if c.dtype == torch.int32 and ring.bits == 64:
+            return c.to(device=device, dtype=torch.int64) & 0xFFFFFFFF
+        return c.to(device=device, dtype=ring.dtype)
+    return from_numpy(c, device, ring)
 
 
 @dataclasses.dataclass
 class _ShareBase:
-    shares: torch.Tensor  # (3, *shape) int32
+    shares: torch.Tensor  # (3, *shape) int32 (ring-32) or int64 (ring-64)
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -67,7 +72,7 @@ class _ShareBase:
 
     @property
     def ring(self) -> Ring:
-        return RING32
+        return ring_of(self.shares)
 
     @property
     def device(self) -> torch.device:
@@ -101,13 +106,13 @@ class _ShareBase:
         if n_rows == cur:
             return self
         pad = torch.zeros(
-            (3, n_rows - cur) + self.shape[1:], dtype=torch.int32, device=self.device
+            (3, n_rows - cur) + self.shape[1:], dtype=self.shares.dtype, device=self.device
         )
         return self.map_shares(lambda s: torch.cat([s, pad], dim=1))
 
 
 class AShare(_ShareBase):
-    """Additive replicated sharing: value = s0 + s1 + s2 mod 2^32."""
+    """Additive replicated sharing: value = s0 + s1 + s2 mod 2^k."""
 
     def __add__(self, other):
         if isinstance(other, AShare):
@@ -117,8 +122,8 @@ class AShare(_ShareBase):
     def __sub__(self, other):
         if isinstance(other, AShare):
             return AShare(self.shares - other.shares)
-        c = _as_ring(other, self.device)
-        return self.add_public(s32(-c) if isinstance(c, int) else -c)
+        c = _as_ring(other, self.device, self.ring)
+        return self.add_public(self.ring.word(-c) if isinstance(c, int) else -c)
 
     def __neg__(self):
         return AShare(-self.shares)
@@ -126,22 +131,24 @@ class AShare(_ShareBase):
     def add_public(self, c) -> "AShare":
         """Add a public constant: by convention share 0 absorbs it."""
         out = self.shares.clone()
-        out[0] += _as_ring(c, self.device)
+        out[0] += _as_ring(c, self.device, self.ring)
         return AShare(out)
 
     def mul_public(self, c) -> "AShare":
-        return AShare(self.shares * _as_ring(c, self.device))
+        return AShare(self.shares * _as_ring(c, self.device, self.ring))
 
     def sum(self, axis=0) -> "AShare":
-        """Local reduction (additions are free under additive sharing)."""
-        return AShare(torch.sum(self.shares, dim=axis + 1, dtype=torch.int64).to(torch.int32))
+        """Local reduction (additions are free under additive sharing; an
+        int64 sum wraps mod 2^64)."""
+        dtype = self.shares.dtype
+        return AShare(torch.sum(self.shares, dim=axis + 1, dtype=torch.int64).to(dtype))
 
     def cumsum(self, axis=0) -> "AShare":
-        return AShare(torch.cumsum(self.shares, dim=axis + 1).to(torch.int32))
+        return AShare(torch.cumsum(self.shares, dim=axis + 1).to(self.shares.dtype))
 
 
 class BShare(_ShareBase):
-    """XOR replicated sharing over 32-bit words: value = s0 ^ s1 ^ s2."""
+    """XOR replicated sharing over k-bit words: value = s0 ^ s1 ^ s2."""
 
     def __xor__(self, other):
         if isinstance(other, BShare):
@@ -150,7 +157,7 @@ class BShare(_ShareBase):
 
     def xor_public(self, c) -> "BShare":
         out = self.shares.clone()
-        out[0] ^= _as_ring(c, self.device)
+        out[0] ^= _as_ring(c, self.device, self.ring)
         return BShare(out)
 
     def __invert__(self) -> "BShare":
@@ -164,10 +171,10 @@ class BShare(_ShareBase):
         return BShare(srl(self.shares, n))
 
     def and_public(self, c) -> "BShare":
-        return BShare(self.shares & _as_ring(c, self.device))
+        return BShare(self.shares & _as_ring(c, self.device, self.ring))
 
     def lsb_mask(self) -> "BShare":
-        """Replicate the LSB of each lane across all 32 bit positions (local:
+        """Replicate the LSB of each lane across all k bit positions (local:
         each share's LSB extends independently)."""
         return BShare(-(self.shares & 1))
 
@@ -181,21 +188,26 @@ class BShare(_ShareBase):
 pytree.register_dataclass(AShare)
 pytree.register_dataclass(BShare)
 
-def _share_legs(x, key: torch.Tensor, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    x = from_numpy(x, device)
+def _share_legs(x, key: torch.Tensor, device, ring: Ring) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    # the two random legs are 32-bit draws, zero-extended on ring-64 as the
+    # reference draws them: their high halves are zero
+    x = from_numpy(x, device, ring)
     k0, k1 = threefry.split(key)
-    return x, threefry.bits(k0, tuple(x.shape), device), threefry.bits(k1, tuple(x.shape), device)
+    shape = tuple(x.shape)
+    return x, widen(threefry.bits(k0, shape, device), ring), widen(threefry.bits(k1, shape, device), ring)
 
 
-def share_a(x, key: torch.Tensor, device) -> AShare:
-    """Data-owner arithmetic sharing of plaintext ``x`` (numpy, uint32)."""
-    x, s0, s1 = _share_legs(x, key, device)
+def share_a(x, key: torch.Tensor, device, ring: Ring = RING32) -> AShare:
+    """Data-owner arithmetic sharing of plaintext ``x`` (numpy, wrapped into
+    ``ring``)."""
+    x, s0, s1 = _share_legs(x, key, device, ring)
     return AShare(torch.stack([s0, s1, x - s0 - s1]))
 
 
-def share_b(x, key: torch.Tensor, device) -> BShare:
-    """Data-owner boolean (XOR) sharing of plaintext ``x`` (numpy, uint32)."""
-    x, s0, s1 = _share_legs(x, key, device)
+def share_b(x, key: torch.Tensor, device, ring: Ring = RING32) -> BShare:
+    """Data-owner boolean (XOR) sharing of plaintext ``x`` (numpy, wrapped
+    into ``ring``)."""
+    x, s0, s1 = _share_legs(x, key, device, ring)
     return BShare(torch.stack([s0, s1, x ^ s0 ^ s1]))
 
 
@@ -219,7 +231,7 @@ def _gate(x: _ShareBase, y: _ShareBase, prf: PRFSetup, boolean: bool) -> torch.T
     # shapes would misalign; alpha is drawn at the broadcast shape
     xs, ys = torch.broadcast_tensors(x.shares, y.shares)
     xs, ys = xs.contiguous(), ys.contiguous()
-    alpha = zero_share_unpooled(prf, xs.shape[1:], xs.device, xor=boolean)
+    alpha = zero_share_unpooled(prf, xs.shape[1:], xs.device, boolean, x.ring)
     return gate(xs, ys, alpha, boolean)
 
 
@@ -232,7 +244,7 @@ def mul(x: AShare, y: AShare, prf: PRFSetup) -> AShare:
 
 
 def and_(x: BShare, y: BShare, prf: PRFSetup) -> BShare:
-    """Secret AND (bitwise over 32-bit lanes): 1 round, 32 bits per lane/party."""
+    """Secret AND (bitwise over k-bit lanes): 1 round, k bits per lane/party."""
     z = _gate(x, y, prf, boolean=True)
     log_comm("and", 1, x.size * x.ring.bytes, payload=z)
     return BShare(z)

@@ -25,7 +25,7 @@ from .ledger import fused_scope, log_comm
 from .prf import PRFSetup, zero_share_unpooled
 from .sharing import AShare, BShare, and_, const_b
 
-__all__ = ["bitonic_sort", "bitonic_sort_narrow", "bitonic_stages"]
+__all__ = ["bitonic_sort", "bitonic_sort_narrow", "bitonic_stages", "sort_valid_first"]
 
 Share = Union[AShare, BShare]
 
@@ -154,3 +154,10 @@ def bitonic_sort_narrow(
     idx = net.pop("__idx")
     moved = apply_secret_perm(payload, idx, prf.fold(686))
     return {n_: (net[n_] if n_ in net else moved[n_]) for n_ in cols}
+
+
+def sort_valid_first(cols: Dict[str, BShare], valid_col: str, prf: PRFSetup) -> Dict[str, BShare]:
+    """Shrinkwrap's pre-cut sort: true tuples (valid = 1) to the front, by a
+    descending sort on the single-bit valid column (the network is not
+    stable, so equal keys keep no particular order, as in Shrinkwrap)."""
+    return bitonic_sort_narrow(cols, valid_col, prf, descending=True)

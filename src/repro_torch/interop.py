@@ -1,9 +1,10 @@
 """State crossing over from the JAX package, as numpy arrays.
 
 The reference hands its share triples and PRF pair keys over as numpy
-``uint32``; these turn them into the port's tensors (int32 ring words on a
-device; keys as (2,) / (3, 2) int32 CPU tensors). Only numpy goes in — this
-module imports neither jax nor the reference.
+``uint32`` (ring-64 shares, under ``jax_enable_x64``, as ``uint64``); these
+turn them into the port's tensors (int32 or int64 ring words on a device;
+keys as (2,) / (3, 2) int32 CPU tensors). Only numpy goes in — this module
+imports neither jax nor the reference.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 
 from .config import resolve_device
 from .core.prf import PRFSetup
-from .core.ring import from_numpy
+from .core.ring import RING32, RING64, from_numpy
 from .core.sharing import BShare
 from .ops.table import SecretTable
 
@@ -39,12 +40,15 @@ def tables_from_numpy(
 ) -> Dict[str, SecretTable]:
     """``{table: ({column: (3, n) uint32 XOR shares}, (3, n) valid shares)}``
     -> ``{table: SecretTable}`` on ``device`` (default ``"cuda"``; raises
-    without a card unless ``device="cpu"``)."""
+    without a card unless ``device="cpu"``). ``uint64`` columns carry over
+    as ring-64 shares."""
     device = resolve_device(device)
+
+    def share(s) -> BShare:
+        s = np.asarray(s)
+        return BShare(from_numpy(s, device, RING64 if s.dtype == np.uint64 else RING32))
+
     out = {}
     for name, (cols, valid) in shares_by_table.items():
-        out[name] = SecretTable(
-            {c: BShare(from_numpy(s, device)) for c, s in cols.items()},
-            BShare(from_numpy(valid, device)),
-        )
+        out[name] = SecretTable({c: share(s) for c, s in cols.items()}, share(valid))
     return out

@@ -17,6 +17,13 @@
                        every stage on the fused path).
 
 Each kernel is a CUDA C++ source in ``csrc/`` with a plain C entry point.
+Five of them (``rss_gate``, ``ks_prefix``, ``and_fold``, ``a2b_kernel``,
+``bit2a_kernel``) are templates on the word type with a second, ``_u64``
+entry for ring-64 (int64 planes); a wrapper picks the build by its
+operands' dtype and counts a 64-bit launch as ``<kernel>_u64``.
+``shuffle_gather`` and ``bitonic_swap`` stay 32-bit: no path of the
+reference shuffles or sorts ring-64 shares, and an int64 plane raises
+``TypeError``.
 :func:`library` builds them at first use — one ``nvcc`` per source for
 ``sm_90a``, all started together, linked into one shared library — from the
 checkout's sources alone into ``kernels/_build/`` (ignored by git), and loads
@@ -83,6 +90,7 @@ __all__ = [
     "build",
     "check_launch",
     "check_lanes",
+    "launch_entry",
     "require_contiguous",
     "batch_to",
     "fold_lanes",
@@ -235,6 +243,12 @@ def library() -> ctypes.CDLL:
             # (mask, own, other, alpha, out, c, n, stream)
             lib.bitonic_swap_launch.argtypes = [vp, vp, vp, vp, vp, i64, i64, vp]
             lib.bitonic_swap_launch.restype = i32
+            # the ring-64 builds take the same arguments as their ring-32 entries
+            for fn in ("rss_gate_launch", "ks_prefix_launch", "and_fold_launch", "a2b_launch",
+                       "bit2a_launch"):
+                wide = getattr(lib, fn + "_u64")
+                wide.argtypes = getattr(lib, fn).argtypes
+                wide.restype = i32
             lib.kernel_error_string.argtypes = [i32]
             lib.kernel_error_string.restype = ctypes.c_char_p
             _LIB = lib
@@ -249,9 +263,10 @@ def check_launch(name: str, err: int) -> None:
 
 
 def check_lanes(name: str, planes, alpha, words: int) -> None:
-    """Raise unless every tensor of ``planes`` is a ``(3, N)`` int32 share
-    triple and ``alpha`` a ``(3, words, N)`` int32 zero sharing, all of one
-    N and on one device (the fused kernels' operands)."""
+    """Raise unless every tensor of ``planes`` is a ``(3, N)`` share triple
+    and ``alpha`` a ``(3, words, N)`` zero sharing, all of one N, one ring
+    (int32 or int64 words) and on one device (the fused kernels'
+    operands)."""
     n = planes[0].shape[-1] if planes[0].dim() == 2 else -1
     if any(p.dim() != 2 or p.shape[0] != 3 or p.shape[1] != n for p in planes) or tuple(
         alpha.shape
@@ -260,12 +275,21 @@ def check_lanes(name: str, planes, alpha, words: int) -> None:
             f"{name} needs (3, N) operands and a (3, {words}, N) alpha, got "
             f"{[tuple(p.shape) for p in planes]} and {tuple(alpha.shape)}"
         )
-    if any(t.dtype != torch.int32 for t in (*planes, alpha)):
-        raise TypeError(f"{name} needs int32 ring words, got {[t.dtype for t in (*planes, alpha)]}")
+    dtypes = [t.dtype for t in (*planes, alpha)]
+    if alpha.dtype not in (torch.int32, torch.int64) or any(d != alpha.dtype for d in dtypes):
+        raise TypeError(f"{name} needs int32 or int64 ring words of one ring, got {dtypes}")
     if any(t.device != alpha.device for t in planes):
         raise ValueError(f"{name} operands lie on different devices")
     if alpha.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu, not {alpha.device}")
+
+
+def launch_entry(name: str, t: torch.Tensor):
+    """The C entry for ``t``'s ring (``<name>_launch`` or
+    ``<name>_launch_u64``) and the launch-count name of that build."""
+    if t.dtype == torch.int64:
+        return getattr(library(), f"{name}_launch_u64"), "_u64"
+    return getattr(library(), f"{name}_launch"), ""
 
 
 def require_contiguous(name: str, *tensors: torch.Tensor) -> None:
@@ -290,10 +314,10 @@ def fold_lanes(t: torch.Tensor, bdim: Optional[int], k: int) -> torch.Tensor:
     return batch_to(t, bdim, k, -2).flatten(-2)
 
 
-def c_shifts(shifts) -> "ctypes.Array":
+def c_shifts(shifts, bits: int = 32) -> "ctypes.Array":
     """A level shift list as the C int array the fused kernels take (at most
-    8 levels, each shift in [0, 31])."""
+    8 levels, each shift in [0, bits - 1] for words of ``bits`` bits)."""
     shifts = tuple(int(d) for d in shifts)
-    if len(shifts) > 8 or any(not 0 <= d < 32 for d in shifts):
-        raise ValueError(f"shift lists take at most 8 shifts in [0, 31], got {shifts}")
+    if len(shifts) > 8 or any(not 0 <= d < bits for d in shifts):
+        raise ValueError(f"shift lists take at most 8 shifts in [0, {bits - 1}], got {shifts}")
     return (ctypes.c_int * max(len(shifts), 1))(*shifts)

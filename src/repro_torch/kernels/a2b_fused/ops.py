@@ -12,7 +12,9 @@ path are exact, as in ``ks_prefix/ops.py``: ``a2b`` packs its alpha words
 per adder as ``[init, lvl0 pg, lvl0 pp, ...]`` from ``prf.fold(31)`` and
 ``prf.fold(32)`` (init gate ``fold(11)``, level d ``fold(200 + d)``), and
 logs the two ``ks_add`` scopes the gate-by-gate path logs; ``bit2a`` draws
-additive zero sharings from ``fold(21)`` and ``fold(22)``.
+additive zero sharings from ``fold(21)`` and ``fold(22)``. Ring-32 (int32)
+operands launch the 32-bit builds, ring-64 (int64) ones the 64-bit builds,
+counted as ``a2b_fused_u64`` / ``bit2a_fused_u64``.
 """
 from __future__ import annotations
 
@@ -20,9 +22,10 @@ from typing import List
 
 import torch
 
-from .. import c_shifts, check_lanes, check_launch, fold_lanes, library, record_launch, require_contiguous
+from .. import c_shifts, check_lanes, check_launch, fold_lanes, launch_entry, record_launch, require_contiguous
 from ...core.ledger import fused_scope, log_comm
 from ...core.prf import PRFSetup, zero_share_unpooled
+from ...core.ring import ring_of
 from ...core.sharing import AShare, BShare
 from ..ks_prefix.ops import ks_prefix_plain, ks_shifts
 from ..rss_gate import gate_plain
@@ -66,7 +69,7 @@ def a2b_plain(xs: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Tensor:
 
 def bit2a_plain(bs: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
     """The bit injection in plain PyTorch; ``bs``: (3, N) boolean shares
-    (LSB used), ``alphas``: (3, 2, N) additive. Wraps mod 2^32."""
+    (LSB used), ``alphas``: (3, 2, N) additive. Wraps mod 2^32 or 2^64."""
     a0, a1, a2 = _trivial_legs(bs & 1)
     t = a0 + a1 - 2 * gate_plain(a0, a1, alphas[:, 0], False)
     return t + a2 - 2 * gate_plain(t, a2, alphas[:, 1], False)
@@ -75,14 +78,15 @@ def bit2a_plain(bs: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
 def a2b_kernel(xs: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Tensor:
     """The whole arithmetic -> boolean conversion in one launch.
 
-    ``xs``: (3, N) int32; ``alphas``: (3, 2(1 + 2 len(shifts)), N) int32;
-    ``shifts``: at most 8 shifts in [0, 31]. A CUDA tensor launches the
+    ``xs``: (3, N); ``alphas``: (3, 2(1 + 2 len(shifts)), N), all int32
+    (ring-32) or all int64 (ring-64); ``shifts``: at most 8 shifts in
+    [0, 31] (ring-32) or [0, 63] (ring-64). A CUDA tensor launches the
     kernel (under ``vmap``, once for all slots; N = 0 takes the plain path
     and launches nothing), a CPU tensor runs :func:`a2b_plain`; any other
     device, dtype, shape or layout raises.
     """
-    c_shifts(shifts)
     check_lanes("a2b", [xs], alphas, 2 * (1 + 2 * len(shifts)))
+    c_shifts(shifts, 8 * xs.element_size())
     if xs.device.type == "cpu":
         return a2b_plain(xs, alphas, shifts)
     return _a2b_op(xs, alphas, [int(d) for d in shifts])
@@ -94,12 +98,13 @@ def _a2b_launch(xs: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Tensor:
         return a2b_plain(xs, alphas, shifts)
     require_contiguous("a2b", xs, alphas)
     out = torch.empty_like(xs)
-    err = library().a2b_launch(
-        xs.data_ptr(), alphas.data_ptr(), out.data_ptr(), n, c_shifts(shifts), len(shifts),
+    entry, build = launch_entry("a2b", xs)
+    err = entry(
+        xs.data_ptr(), alphas.data_ptr(), out.data_ptr(), n, c_shifts(shifts, 8 * xs.element_size()), len(shifts),
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
-    check_launch("a2b", err)
-    record_launch("a2b_fused")
+    check_launch("a2b" + build, err)
+    record_launch("a2b_fused" + build)
     return out
 
 
@@ -125,9 +130,9 @@ _a2b_op.register_vmap(_a2b_batch_rule)
 def bit2a_kernel(bs: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
     """Both dependent ring products of the bit injection in one launch.
 
-    ``bs``: (3, N) int32 (LSB used); ``alphas``: (3, 2, N) int32 additive
-    zero sharings. Devices, checks, ``vmap`` and N = 0 as :func:`a2b_kernel`;
-    a CPU tensor runs :func:`bit2a_plain`.
+    ``bs``: (3, N) (LSB used); ``alphas``: (3, 2, N) additive zero
+    sharings. Rings, devices, checks, ``vmap`` and N = 0 as
+    :func:`a2b_kernel`; a CPU tensor runs :func:`bit2a_plain`.
     """
     check_lanes("bit2a", [bs], alphas, 2)
     if bs.device.type == "cpu":
@@ -141,12 +146,13 @@ def _bit2a_launch(bs: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
         return bit2a_plain(bs, alphas)
     require_contiguous("bit2a", bs, alphas)
     out = torch.empty_like(bs)
-    err = library().bit2a_launch(
+    entry, build = launch_entry("bit2a", bs)
+    err = entry(
         bs.data_ptr(), alphas.data_ptr(), out.data_ptr(), n,
         torch.cuda.current_stream(bs.device).cuda_stream,
     )
-    check_launch("bit2a", err)
-    record_launch("bit2a_fused")
+    check_launch("bit2a" + build, err)
+    record_launch("bit2a_fused" + build)
     return out
 
 
@@ -173,11 +179,11 @@ def _ks_add_alphas(prf: PRFSetup, shape, shifts, out: torch.Tensor) -> None:
     """Fill ``out`` (3, 1 + 2L, lanes) with one adder's alpha words in
     kernel order [init, lvl0 pg, lvl0 pp, ...]: the gate-by-gate ``ks_add``'s
     folds (init gate ``fold(11)``, level d ``fold(200 + d)``)."""
-    device = out.device
-    out[:, 0] = zero_share_unpooled(prf.fold(11), shape, device, xor=True).reshape(3, -1)
+    device, ring = out.device, ring_of(out)
+    out[:, 0] = zero_share_unpooled(prf.fold(11), shape, device, True, ring).reshape(3, -1)
     for lvl, d in enumerate(shifts):
         out[:, 1 + 2 * lvl:3 + 2 * lvl] = zero_share_unpooled(
-            prf.fold_unpooled(200 + d), (2,) + shape, device, xor=True
+            prf.fold_unpooled(200 + d), (2,) + shape, device, True, ring
         ).reshape(3, 2, -1)
 
 
@@ -188,7 +194,7 @@ def a2b_fused(x: AShare, prf: PRFSetup, width: int) -> BShare:
     shifts = ks_shifts(width)
     levels = width.bit_length() - 1  # the ledger's round count, as ks_add's
     words = 1 + 2 * len(shifts)
-    alphas = torch.empty((3, 2 * words, lanes), dtype=torch.int32, device=x.device)
+    alphas = torch.empty((3, 2 * words, lanes), dtype=ring.dtype, device=x.device)
     _ks_add_alphas(prf.fold(31), shape, shifts, alphas[:, :words])
     _ks_add_alphas(prf.fold(32), shape, shifts, alphas[:, words:])
     out = a2b_kernel(x.shares.reshape(3, -1).contiguous(), alphas, shifts)
@@ -204,10 +210,10 @@ def a2b_fused(x: AShare, prf: PRFSetup, width: int) -> BShare:
 def bit2a_fused(b: BShare, prf: PRFSetup) -> AShare:
     """Both ring products of the bit injection in one launch (the
     gate-by-gate path takes two ``rss_gate`` launches)."""
-    shape, lanes = b.shape, b.size
-    alphas = torch.empty((3, 2, lanes), dtype=torch.int32, device=b.device)
-    alphas[:, 0] = zero_share_unpooled(prf.fold(21), shape, b.device, xor=False).reshape(3, -1)
-    alphas[:, 1] = zero_share_unpooled(prf.fold(22), shape, b.device, xor=False).reshape(3, -1)
+    shape, lanes, ring = b.shape, b.size, b.ring
+    alphas = torch.empty((3, 2, lanes), dtype=ring.dtype, device=b.device)
+    alphas[:, 0] = zero_share_unpooled(prf.fold(21), shape, b.device, False, ring).reshape(3, -1)
+    alphas[:, 1] = zero_share_unpooled(prf.fold(22), shape, b.device, False, ring).reshape(3, -1)
     out = bit2a_kernel(b.shares.reshape(3, -1).contiguous(), alphas)
     for _ in range(2):
         log_comm("mul", 1, lanes * b.ring.bytes)

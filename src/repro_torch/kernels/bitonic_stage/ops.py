@@ -50,7 +50,8 @@ def stage_swap(mask: torch.Tensor, own: torch.Tensor, other: torch.Tensor, alpha
         )
     if any(t.dtype != torch.int32 for t in (mask, own, other, alpha)):
         raise TypeError(
-            f"bitonic_swap needs int32 ring words, got {[t.dtype for t in (mask, own, other, alpha)]}"
+            f"bitonic_swap needs int32 (ring-32) words, got {[t.dtype for t in (mask, own, other, alpha)]}; "
+            f"no path sorts ring-64 shares, so it has no 64-bit build (ROADMAP.md, Queue 1, step 5)"
         )
     if not (mask.device == own.device == other.device == alpha.device):
         raise ValueError("bitonic_swap operands lie on different devices")

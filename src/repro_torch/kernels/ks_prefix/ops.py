@@ -19,6 +19,10 @@ do not, as the reference's wrappers do:
   gate-by-gate ``and_`` would have logged;
 * shape plumbing — lanes of any shape are flattened in order (``reshape(3,
   -1)``), with no padding: the kernel masks its own tail.
+
+Ring-32 (int32) operands launch the 32-bit builds, ring-64 (int64) ones the
+64-bit builds (shifts up to 63, six levels at width 64), counted as
+``ks_prefix_u64`` / ``and_fold_u64``.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from typing import List, Tuple
 
 import torch
 
-from .. import c_shifts, check_lanes, check_launch, fold_lanes, library, record_launch, require_contiguous
+from .. import c_shifts, check_lanes, check_launch, fold_lanes, launch_entry, record_launch, require_contiguous
 from ...core.ledger import log_comm
 from ...core.prf import PRFSetup, zero_share_unpooled
 from ...core.ring import srl
@@ -91,14 +95,15 @@ def and_fold_plain(v: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Tenso
 def ks_prefix(g: torch.Tensor, p: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Tensor:
     """Every Kogge-Stone level in one launch.
 
-    ``g``, ``p``: (3, N) int32; ``alphas``: (3, 2 * len(shifts), N) int32;
-    ``shifts``: at most 8 shifts in [0, 31]. A CUDA tensor launches the
+    ``g``, ``p``: (3, N); ``alphas``: (3, 2 * len(shifts), N), all int32
+    (ring-32) or all int64 (ring-64); ``shifts``: at most 8 shifts in
+    [0, 31] (ring-32) or [0, 63] (ring-64). A CUDA tensor launches the
     kernel (under ``vmap``, once for all slots; N = 0 takes the plain path
     and launches nothing), a CPU tensor runs :func:`ks_prefix_plain`; any
     other device, dtype, shape or layout raises.
     """
-    c_shifts(shifts)
     check_lanes("ks_prefix", [g, p], alphas, 2 * len(shifts))
+    c_shifts(shifts, 8 * g.element_size())
     if g.device.type == "cpu":
         return ks_prefix_plain(g, p, alphas, shifts)
     return _ks_prefix_op(g, p, alphas, [int(d) for d in shifts])
@@ -110,12 +115,13 @@ def _ks_prefix_launch(g: torch.Tensor, p: torch.Tensor, alphas: torch.Tensor, sh
         return ks_prefix_plain(g, p, alphas, shifts)
     require_contiguous("ks_prefix", g, p, alphas)
     out = torch.empty_like(g)
-    err = library().ks_prefix_launch(
-        g.data_ptr(), p.data_ptr(), alphas.data_ptr(), out.data_ptr(), n, c_shifts(shifts), len(shifts),
-        torch.cuda.current_stream(g.device).cuda_stream,
+    entry, build = launch_entry("ks_prefix", g)
+    err = entry(
+        g.data_ptr(), p.data_ptr(), alphas.data_ptr(), out.data_ptr(), n,
+        c_shifts(shifts, 8 * g.element_size()), len(shifts), torch.cuda.current_stream(g.device).cuda_stream,
     )
-    check_launch("ks_prefix", err)
-    record_launch("ks_prefix")
+    check_launch("ks_prefix" + build, err)
+    record_launch("ks_prefix" + build)
     return out
 
 
@@ -141,12 +147,12 @@ _ks_prefix_op.register_vmap(_ks_prefix_batch_rule)
 def and_fold(v: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Tensor:
     """The equality AND tree in one launch.
 
-    ``v``: (3, N) int32; ``alphas``: (3, len(shifts), N) int32. Devices,
-    checks, ``vmap`` and N = 0 as :func:`ks_prefix`; a CPU tensor runs
+    ``v``: (3, N); ``alphas``: (3, len(shifts), N); rings, devices, checks,
+    ``vmap`` and N = 0 as :func:`ks_prefix`; a CPU tensor runs
     :func:`and_fold_plain`.
     """
-    c_shifts(shifts)
     check_lanes("and_fold", [v], alphas, len(shifts))
+    c_shifts(shifts, 8 * v.element_size())
     if v.device.type == "cpu":
         return and_fold_plain(v, alphas, shifts)
     return _and_fold_op(v, alphas, [int(d) for d in shifts])
@@ -158,12 +164,13 @@ def _and_fold_launch(v: torch.Tensor, alphas: torch.Tensor, shifts) -> torch.Ten
         return and_fold_plain(v, alphas, shifts)
     require_contiguous("and_fold", v, alphas)
     out = torch.empty_like(v)
-    err = library().and_fold_launch(
-        v.data_ptr(), alphas.data_ptr(), out.data_ptr(), n, c_shifts(shifts), len(shifts),
+    entry, build = launch_entry("and_fold", v)
+    err = entry(
+        v.data_ptr(), alphas.data_ptr(), out.data_ptr(), n, c_shifts(shifts, 8 * v.element_size()), len(shifts),
         torch.cuda.current_stream(v.device).cuda_stream,
     )
-    check_launch("and_fold", err)
-    record_launch("and_fold")
+    check_launch("and_fold" + build, err)
+    record_launch("and_fold" + build)
     return out
 
 
@@ -196,10 +203,11 @@ def ks_levels_fused(g: BShare, p: BShare, prf: PRFSetup, width: int, fold_base: 
     shifts = ks_shifts(width)
     # one (2, *shape) XOR zero sharing per level, as the gate-by-gate
     # _and_pair draws it: word 2l for the pg gate, 2l + 1 for pp
-    alphas = torch.empty((3, 2 * len(shifts), lanes), dtype=torch.int32, device=device)
+    ring = g.ring
+    alphas = torch.empty((3, 2 * len(shifts), lanes), dtype=ring.dtype, device=device)
     for lvl, d in enumerate(shifts):
         alphas[:, 2 * lvl:2 * lvl + 2] = zero_share_unpooled(
-            prf.fold_unpooled(fold_base + d), (2,) + shape, device, xor=True
+            prf.fold_unpooled(fold_base + d), (2,) + shape, device, True, ring
         ).reshape(3, 2, -1)
     out = ks_prefix(_lanes(g), _lanes(p), alphas, shifts)
     for _ in shifts:
@@ -212,9 +220,10 @@ def and_fold_fused(v: BShare, prf: PRFSetup, width: int) -> BShare:
     (the caller still masks the LSB)."""
     shape, lanes, device = v.shape, v.size, v.device
     shifts = fold_shifts(width)
-    alphas = torch.empty((3, len(shifts), lanes), dtype=torch.int32, device=device)
+    ring = v.ring
+    alphas = torch.empty((3, len(shifts), lanes), dtype=ring.dtype, device=device)
     for lvl, d in enumerate(shifts):
-        alphas[:, lvl] = zero_share_unpooled(prf.fold_unpooled(d), shape, device, xor=True).reshape(3, -1)
+        alphas[:, lvl] = zero_share_unpooled(prf.fold_unpooled(d), shape, device, True, ring).reshape(3, -1)
     out = and_fold(_lanes(v), alphas, shifts)
     for _ in shifts:
         log_comm("and", 1, lanes * v.ring.bytes)

@@ -2,13 +2,15 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/rss_gate/rss_gate.py:43``
 (wrapper ``ops.py:14``, oracle ``ref.py:7``); the CUDA source is
-``kernels/csrc/rss_gate.cu``, which notes its byte bound and design.
+``kernels/csrc/rss_gate.cu``, which notes its byte bound and design. Ring-32
+(int32) operands launch its 32-bit build, ring-64 (int64) ones its 64-bit
+build, counted as ``rss_gate_u64``.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import batch_to, check_launch, library, record_launch, require_contiguous
+from .. import batch_to, check_launch, launch_entry, record_launch, require_contiguous
 
 __all__ = ["gate", "gate_plain"]
 
@@ -26,7 +28,8 @@ def gate_plain(xs: torch.Tensor, ys: torch.Tensor, alpha: torch.Tensor, boolean:
 def gate(xs: torch.Tensor, ys: torch.Tensor, alpha: torch.Tensor, boolean: bool) -> torch.Tensor:
     """``z_i = cross(x_i, x_{i+1}, y_i, y_{i+1}) (+|^) alpha_i`` per lane.
 
-    ``xs``, ``ys``, ``alpha``: int32 share triples of one shape ``(3, ...)``
+    ``xs``, ``ys``, ``alpha``: share triples of one shape ``(3, ...)`` and
+    one ring (int32 or int64 words)
     (the caller broadcasts operands first; lanes are flattened). A CUDA tensor
     launches the kernel (under ``vmap``, once for all slots), a CPU tensor
     runs :func:`gate_plain`; any other device, dtype, shape or layout
@@ -37,8 +40,10 @@ def gate(xs: torch.Tensor, ys: torch.Tensor, alpha: torch.Tensor, boolean: bool)
             f"rss_gate needs three (3, ...) operands of one shape, got "
             f"{tuple(xs.shape)}, {tuple(ys.shape)}, {tuple(alpha.shape)}"
         )
-    if not (xs.dtype == ys.dtype == alpha.dtype == torch.int32):
-        raise TypeError(f"rss_gate needs int32 ring words, got {xs.dtype}, {ys.dtype}, {alpha.dtype}")
+    if not (xs.dtype == ys.dtype == alpha.dtype) or xs.dtype not in (torch.int32, torch.int64):
+        raise TypeError(
+            f"rss_gate needs int32 or int64 ring words of one ring, got {xs.dtype}, {ys.dtype}, {alpha.dtype}"
+        )
     if not (xs.device == ys.device == alpha.device):
         raise ValueError("rss_gate operands lie on different devices")
     if xs.device.type == "cpu":
@@ -58,12 +63,13 @@ def _launch(xs: torch.Tensor, ys: torch.Tensor, alpha: torch.Tensor, boolean: bo
     n = xs[0].numel()
     if n == 0:
         return out
-    err = library().rss_gate_launch(
+    entry, build = launch_entry("rss_gate", xs)
+    err = entry(
         xs.data_ptr(), ys.data_ptr(), alpha.data_ptr(), out.data_ptr(), n,
         int(boolean), torch.cuda.current_stream(xs.device).cuda_stream,
     )
-    check_launch("rss_gate", err)
-    record_launch("rss_gate")
+    check_launch("rss_gate" + build, err)
+    record_launch("rss_gate" + build)
     return out
 
 

@@ -115,8 +115,9 @@ def _check_hop(name: str, cols: Sequence[torch.Tensor], index: torch.Tensor) -> 
     if n >= 2**31:
         raise ValueError(f"{name} takes fewer than 2^31 rows, got {n}")
     if index.dtype != torch.int64 or any(c.dtype != torch.int32 for c in cols):
-        raise TypeError(f"{name} needs int32 columns and an int64 index, got "
-                        f"{[c.dtype for c in cols]}, {index.dtype}")
+        raise TypeError(f"{name} needs int32 (ring-32) columns and an int64 index, got "
+                        f"{[c.dtype for c in cols]}, {index.dtype}; no path shuffles ring-64 "
+                        f"shares, so it has no 64-bit build (ROADMAP.md, Queue 1, step 5)")
     if any(c.device != index.device for c in cols):
         raise ValueError(f"{name} operands lie on different devices")
     if index.device.type not in ("cpu", "cuda"):

@@ -64,6 +64,7 @@ import torch
 from ..config import resolve_device
 from ..core import material, threefry
 from ..core.prf import PRFSetup, _draw_bits, _draw_uniform, _fold_keys, zero_share_unpooled
+from ..core.ring import ring_named
 
 __all__ = ["RandomnessPool", "PoolSource", "Recipe", "RESIZE_TAG_LO", "RESIZE_TAG_HI"]
 
@@ -81,11 +82,11 @@ def _derive(op: str, parent: torch.Tensor, args: tuple, device) -> torch.Tensor:
     if op == "fold":
         return _fold_keys(parent, args[0])
     if op == "draw":
-        return _draw_bits(parent, tuple(args[0]), device)
+        return _draw_bits(parent, tuple(args[0]), device, ring_named(args[1]))
     if op == "uniform":
         return _draw_uniform(parent, tuple(args[0]), device)
     if op in ("zero_add", "zero_xor"):
-        return zero_share_unpooled(PRFSetup(parent), tuple(args[0]), device, xor=op == "zero_xor")
+        return zero_share_unpooled(PRFSetup(parent), tuple(args[0]), device, op == "zero_xor", ring_named(args[1]))
     if op == "perm":
         hop, n = args
         return threefry.permutation(parent[hop], n, device)

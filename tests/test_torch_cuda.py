@@ -97,8 +97,10 @@ def test_wrappers_raise_on_bad_input(cuda):
     x = torch.zeros((3, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         gate(x, x[:, :4], x, True)
+    with pytest.raises(TypeError):  # int64 words are ring-64: one ring for all three
+        gate(x.long(), x, x.long(), True)
     with pytest.raises(TypeError):
-        gate(x.long(), x.long(), x.long(), True)
+        gate(x.to(torch.int16), x.to(torch.int16), x.to(torch.int16), True)
     with pytest.raises(ValueError):
         gate(x.t().contiguous().t(), x, x, True)
     with pytest.raises(TypeError):
@@ -187,8 +189,10 @@ def test_fused_wrappers_raise_on_bad_input(cuda):
         ks_prefix(x.t().contiguous().t(), x, torch.zeros((3, 2, 8), dtype=torch.int32, device=cuda), (1,))
     with pytest.raises(ValueError):  # operands on two devices
         bit2a_kernel(x, torch.zeros((3, 2, 8), dtype=torch.int32))
+    with pytest.raises(TypeError):  # int64 words are ring-64: one ring for all operands
+        and_fold(x.long(), torch.zeros((3, 1, 8), dtype=torch.int32, device=cuda), (1,))
     with pytest.raises(TypeError):
-        and_fold(x.long(), torch.zeros((3, 1, 8), dtype=torch.int64, device=cuda), (1,))
+        and_fold(x.to(torch.int16), torch.zeros((3, 1, 8), dtype=torch.int16, device=cuda), (1,))
 
 
 @pytest.mark.parametrize("c", [1, 3, 9])
@@ -648,3 +652,112 @@ def test_loopback_mesh_on_cuda_equals_cpu(cuda):
                 counts.append(launch_counts())
             assert counts[1] == {k: 3 * v for k, v in counts[0].items()} and counts[0]
     local.close()
+
+
+# -----------------------------------------------------------------------------
+# ring-64: the five 64-bit builds (int64 planes), counted as "<kernel>_u64"
+# -----------------------------------------------------------------------------
+
+def _words64(rng, shape, device):
+    return torch.from_numpy(rng.integers(0, 2**64, size=shape, dtype=np.uint64).view(np.int64)).to(device)
+
+
+def _wide_calls(rng, n, cuda):
+    """(kernel name, kernel call, plain call) of each 64-bit build at n lanes."""
+    ks, fs = ks_shifts(64), fold_shifts(64)
+    x, y, a = (_words64(rng, (3, n), cuda) for _ in range(3))
+    alpha_ks = _words64(rng, (3, 2 * len(ks), n), cuda)
+    alpha_fold = _words64(rng, (3, len(fs), n), cuda)
+    alpha_a2b = _words64(rng, (3, 2 * (1 + 2 * len(ks)), n), cuda)
+    alpha_bit = _words64(rng, (3, 2, n), cuda)
+    return [
+        ("rss_gate", lambda: gate(x, y, a, True), lambda: gate_plain(x, y, a, True)),
+        ("rss_gate", lambda: gate(x, y, a, False), lambda: gate_plain(x, y, a, False)),
+        ("ks_prefix", lambda: ks_prefix(x, y, alpha_ks, ks), lambda: ks_prefix_plain(x, y, alpha_ks, ks)),
+        ("and_fold", lambda: and_fold(x, alpha_fold, fs), lambda: and_fold_plain(x, alpha_fold, fs)),
+        ("a2b_fused", lambda: a2b_kernel(x, alpha_a2b, ks), lambda: a2b_plain(x, alpha_a2b, ks)),
+        ("bit2a_fused", lambda: bit2a_kernel(x, alpha_bit), lambda: bit2a_plain(x, alpha_bit)),
+    ]
+
+
+@pytest.mark.parametrize("n", [1 << 16, 4099])
+def test_wide_builds_equal_plain(cuda, n):
+    # an aligned lane count (the 16-byte path) and an odd one (the scalar path)
+    for kind, kernel, plain in _wide_calls(np.random.default_rng(n), n, cuda):
+        reset_launch_counts()
+        got = kernel()
+        torch.cuda.synchronize()
+        assert launch_counts() == {kind + "_u64": 1}
+        assert got.dtype == torch.int64 and torch.equal(got, plain()), kind
+
+
+@pytest.mark.parametrize("width", [18, 32])
+def test_wide_builds_at_the_circuits_other_widths(cuda, width):
+    rng = np.random.default_rng(width)
+    ks, fs = ks_shifts(width), fold_shifts(width)
+    g, p = _words64(rng, (3, 1031), cuda), _words64(rng, (3, 1031), cuda)
+    a = _words64(rng, (3, 2 * len(ks), 1031), cuda)
+    assert torch.equal(ks_prefix(g, p, a, ks), ks_prefix_plain(g, p, a, ks))
+    a = _words64(rng, (3, len(fs), 1031), cuda)
+    assert torch.equal(and_fold(g, a, fs), and_fold_plain(g, a, fs))
+    a = _words64(rng, (3, 2 * (1 + 2 * len(ks)), 1031), cuda)
+    assert torch.equal(a2b_kernel(g, a, ks), a2b_plain(g, a, ks))
+
+
+def test_wide_builds_unaligned_planes(cuda):
+    rng = np.random.default_rng(5)
+    base = _words64(rng, (3 * 1024 + 1,), cuda)
+    x = base[1:].view(3, 1024)  # 8 bytes into its storage: the scalar path
+    y, a = _words64(rng, (3, 1024), cuda), _words64(rng, (3, 1024), cuda)
+    assert torch.equal(gate(x, y, a, False), gate_plain(x, y, a, False))
+    ks = ks_shifts(64)
+    alpha = _words64(rng, (3, 2 * (1 + 2 * len(ks)), 1024), cuda)
+    assert torch.equal(a2b_kernel(x, alpha, ks), a2b_plain(x, alpha, ks))
+
+
+def test_wide_batch_rules(cuda):
+    rng = np.random.default_rng(15)
+
+    def slots(shape, batched=True):
+        return _words64(rng, ((K,) + shape) if batched else shape, cuda)
+
+    ops = [slots((3, 999)), slots((3, 999)), slots((3, 999), False)]
+    _one_launch_equals_k_launches("rss_gate_u64", lambda x, y, a: gate(x, y, a, False),
+                                  lambda x, y, a: gate_plain(x, y, a, False), ops, (0, 0, None))
+    ks = ks_shifts(64)
+    ops = [slots((3, 999)), slots((3, 2 * (1 + 2 * len(ks)), 999), False)]
+    _one_launch_equals_k_launches("a2b_fused_u64", lambda x, a: a2b_kernel(x, a, ks),
+                                  lambda x, a: a2b_plain(x, a, ks), ops, (0, None))
+
+
+def test_ring64_circuits_on_cuda_equal_cpu(cuda):
+    """Ring-64 circuits on the card: the shares and ledger of the CPU, on
+    both paths, and the answers of numpy uint64."""
+    from repro_torch.core import circuits as c
+    from repro_torch.core import sharing as sh
+    from repro_torch.core import threefry
+    from repro_torch.core.ledger import CommLedger
+    from repro_torch.core.prf import setup_prf
+    from repro_torch.core.ring import RING64, to_numpy
+    from repro_torch.kernels import override_fusion
+
+    rng = np.random.default_rng(9)
+    x = rng.integers(0, 2**64, 1000, dtype=np.uint64)
+    y = rng.integers(0, 2**64, 1000, dtype=np.uint64)
+    x[:3] = [0, 2**63, 2**64 - 1]
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        prf = setup_prf(threefry.PRNGKey(1))
+        xb, yb = sh.share_b(x, threefry.PRNGKey(2), dev, RING64), sh.share_b(y, threefry.PRNGKey(3), dev, RING64)
+        xa = sh.share_a(x, threefry.PRNGKey(4), dev, RING64)
+        for fused in (True, False):
+            with override_fusion(fused), CommLedger() as led:
+                outs = [c.lt(xb, yb, prf), c.eq(xb, yb, prf), c.a2b(xa, prf), c.b2a(xb, prf), sh.mul(xa, xa, prf)]
+            runs[dev.type, fused] = ([to_numpy(o.shares) for o in outs], led.tally())
+    for fused in (True, False):
+        got, want = runs["cuda", fused], runs["cpu", fused]
+        assert got[1] == want[1] and all((a == b).all() for a, b in zip(got[0], want[0]))
+    lt = np.bitwise_xor.reduce(runs["cuda", True][0][0], axis=0) & np.uint64(1)
+    assert (lt == (x < y)).all()
+    with pytest.raises(TypeError, match="ring-32"):
+        shuffle_gather(_words64(rng, (3, 8, 1), cuda), torch.arange(8, device=cuda))

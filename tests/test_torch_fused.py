@@ -236,8 +236,10 @@ def test_wrappers_raise_on_bad_input():
         and_fold(x, torch.zeros((3, 1, 8), dtype=torch.int32), (32,))
     with pytest.raises(ValueError):  # more than 8 levels
         ks_prefix(x, x, torch.zeros((3, 18, 8), dtype=torch.int32), tuple(range(1, 10)))
+    with pytest.raises(TypeError):  # int64 words are ring-64: one ring for all operands
+        bit2a_kernel(x.long(), torch.zeros((3, 2, 8), dtype=torch.int32))
     with pytest.raises(TypeError):
-        bit2a_kernel(x.long(), torch.zeros((3, 2, 8), dtype=torch.int64))
+        bit2a_kernel(x.to(torch.int16), torch.zeros((3, 2, 8), dtype=torch.int16))
     with pytest.raises(ValueError):  # lanes not flattened
         a2b_kernel(x.view(3, 2, 4), torch.zeros((3, 22, 8), dtype=torch.int32), ks_shifts(32))
     with pytest.raises(ValueError):

@@ -96,8 +96,10 @@ def test_wrappers_check_their_inputs():
         gate(x, x[:, :4], x, True)
     with pytest.raises(ValueError):
         gate(x[:2], x[:2], x[:2], True)
+    with pytest.raises(TypeError):  # int64 words are ring-64: one ring for all three
+        gate(x.long(), x, x.long(), True)
     with pytest.raises(TypeError):
-        gate(x.long(), x.long(), x.long(), True)
+        gate(x.to(torch.int16), x.to(torch.int16), x.to(torch.int16), True)
     with pytest.raises(ValueError):
         gate(x.to("meta"), x.to("meta"), x.to("meta"), True)
     with pytest.raises(TypeError):

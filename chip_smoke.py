@@ -60,8 +60,8 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
    the fused and on the gate-by-gate path, one join tile, and the largest
    shuffle hop;
 6. batched execution: ``Engine.execute_batch`` of K = 4 copies of the
-   sort-merge ``dosage_study`` (n = 4,096 rows per table, half of phase
-   3's, as in phases 8 and 9; Beta(2,6) Resizers,
+   sort-merge ``dosage_study`` (n = 2,048 rows per table, a quarter of
+   phase 3's, as in phases 8 and 9; Beta(2,6) Resizers,
    ``bucket_fn`` the next power of two), each slot against a serial
    ``execute`` of one engine with the same key: stacked and split node
    counts, every slot's shares, per-node ledger, S and rows identical to
@@ -126,13 +126,36 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
     sequential addition and ``use_sort=True``; Reflex, the same noise with
     parallel addition; revealed, ``RevealNoise``; placement
     ``all_internal``, ``bucket_fn`` the next power of two) over the
-    sort-merge ``dosage_study`` and ``aspirin_count`` at n rows per table
+    sort-merge ``dosage_study`` and ``aspirin_count`` at n = 4,096 rows
+    per table (half of phase 3's n, so that the script keeps to its time)
     and phase 3's catalog, and the product-join ``dosage_study`` under
     sort&cut at n=512 (at n=8192 its join's sort&cut Resize would pad to
     2^26 rows), each answer the oracle's, with seconds, the heaviest node,
     peak memory and each Resize's (S, n), a sort&cut Resize's n padded to
     a power of two; then the n=48 quickstart plan under sort&cut identical
-    on cuda and cpu and gate by gate.
+    on cuda and cpu and gate by gate;
+11. the LM side's serving path (``repro_torch.models``, ``configs``,
+    ``serve``; plain PyTorch, no TPU kernel lies on it): the ten reduced
+    architectures in f32 with TF32 off, ``forward``, ``prefill`` and eight
+    decode steps on ``cuda`` equal to ``cpu`` (max |diff| 1e-4; 5e-3 for
+    recurrentgemma and xlstm); ``stablelm_1_6b`` at full width and depth
+    (1.64 B parameters, f32 masters, bf16 compute), eight seeded requests of
+    40-500 tokens through ``BucketedBatcher((128, 256, 512), (1, 2, 4, 8))``
+    drained lot by lot: the prefill step's next-token logits, the serve
+    step over ``init_caches(B, bucket + 32)`` fed the bucket's tokens (each
+    position's logits against ``forward``'s and the last against the
+    prefill step, max |diff| 0.25 and mean 0.02: ``LM_BF16_MAX``,
+    ``LM_BF16_MEAN``), then 32 greedy tokens, with prefill tokens/s, serve
+    ms per step, peak memory and seconds; then every other architecture at
+    full width cut to one group of its pattern (two layers; recurrentgemma
+    19, xlstm 8): ``forward`` at B = 2, S = 256 (paligemma: 256 patch
+    embeddings then 256 tokens; musicgen: frame embeddings), 16 serve steps
+    from empty caches against ``forward`` (paligemma against its causal
+    forward; mixtral with the ``full`` capacity; xlstm only finite, with
+    the reference's mLSTM decode gap printed), mixtral under the four
+    capacity policies (C, dropped assignments, distance from ``full``),
+    stablelm chunked against dense and with the int8 KV cache and bf16
+    decode scores; ``arctic_480b`` is left out (its reason printed).
 
 The kernels line's launches sum phases 3, 6, 8, 9 and 10's sort&cut runs;
 the nested ``"u64"`` object of each kernel with a 64-bit build holds that
@@ -165,10 +188,10 @@ INT32_OPS_PER_S = 33.5e12
 # the full-size run: rows in each healthlnk table (2,048 patients)
 ROWS_PER_TABLE = 8192
 # rows per table of phases 6, 8 and 9 (batch, service, networked runtime):
-# half of the full size, so that the whole script stays well inside its
-# time limit on the slower hosts the card comes with (their host-bound nodes
-# take up to 1.6x as long)
-LATER_ROWS = 4096
+# a quarter of the full size, so that the whole script, phase 11 included,
+# stays inside its time limit on the slower hosts the card comes with (their
+# host-bound nodes take up to 1.6x as long)
+LATER_ROWS = 2048
 # three_join's rows per table: its second and third product joins hold about
 # S1 * n/4 and S2 * n/4 rows (S: the Resize sizes), which grow as n^3 and n^4
 THREE_JOIN_ROWS = 512
@@ -1841,8 +1864,11 @@ RING64_CIRCUITS = {
     "and": ({"rss_gate_u64": 1}, 1),
 }
 # the paper's four modes (benchmarks/bench_healthlnk.py:38-45) over the
-# sort-merge plans of phase 3, and the product-join run's cut size
+# sort-merge plans of phase 3 at half its rows per table (so that the whole
+# script, phase 11 included, stays inside its time limit on the slower
+# hosts), and the product-join run's cut size
 SORTCUT_QUERIES = ("dosage_study", "aspirin_count")
+SORTCUT_ROWS = 4096
 SORTCUT_PRODUCT_ROWS = 512
 
 
@@ -2236,6 +2262,458 @@ def sortcut_cross_device(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 11. the LM side's serving path (models, configs, serve)
+# ---------------------------------------------------------------------------
+
+# f32 cross-device tolerances (the CPU tests' against JAX): attention, dense
+# and MoE families; the recurrent ones
+LM_F32_TOL = 1e-4
+LM_RECURRENT_TOL = 5e-3
+LM_RECURRENT = ("recurrentgemma_9b", "xlstm_1_3b")
+# bf16 compute at full width: serve-step logits against forward's (logits of
+# order 4; a wrong position or cache gives errors of 0.2 to 3): the largest
+# |difference| and the mean |difference| over all logits compared
+LM_BF16_MAX = 0.25
+LM_BF16_MEAN = 0.02
+LM_SEED = 20
+LM_REQUESTS = 8
+LM_PROMPT_LENGTHS = (40, 500)
+LM_LEN_BUCKETS = (128, 256, 512)
+LM_BATCH_BUCKETS = (1, 2, 4, 8)
+LM_NEW_TOKENS = 32
+LM_SEQ = 256  # forward at full width: B = 2, S = 256
+LM_STEPS = 16  # serve steps from empty caches against forward
+LM_SERVED = "stablelm_1_6b"
+LM_EXCUSED = {
+    "arctic_480b": "one layer at full width holds 53.6 GB of f32 expert weights plus 26.8 GB of per-call "
+                   "bf16 casts, more than the card's 80 GB: it waits for the sharding slice",
+}
+
+
+def _lm_batch(cfg, rng, b: int, s: int, dev) -> dict:
+    """A seeded batch of ``s`` positions: tokens, frame embeddings (musicgen)
+    or an image prefix of ``n_prefix`` patch embeddings and ``s`` tokens
+    (paligemma)."""
+    import torch
+
+    out = {}
+    if cfg.input_mode == "embeddings":
+        n_emb = cfg.n_prefix if cfg.prefix_lm and cfg.n_prefix else s
+        out["embeds"] = torch.from_numpy(rng.standard_normal((b, n_emb, cfg.d_model)).astype("float32")).to(dev)
+        if not (cfg.prefix_lm and cfg.n_prefix):
+            return out
+    out["tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype("int32")).to(dev)
+    return out
+
+
+def _lm_step_input(cfg, rng) -> dict:
+    """One seeded decode step's input on the CPU: a token, or a frame
+    embedding (musicgen)."""
+    import torch
+
+    if cfg.input_mode == "embeddings" and not (cfg.prefix_lm and cfg.n_prefix):
+        return {"embeds": torch.from_numpy(rng.standard_normal((2, 1, cfg.d_model)).astype("float32"))}
+    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)).astype("int32"))}
+
+
+def _lm_steps(b: dict, t: int) -> dict:
+    """Position ``t`` of a batch as one serve step's input."""
+    return {k: v[:, t : t + 1] for k, v in b.items()}
+
+
+def _tree_err(a: dict, b: dict) -> float:
+    from repro_torch.models.lm import tree_items
+
+    worst = 0.0
+    for (pa, ta), (pb, tb) in zip(tree_items(a), tree_items(b)):
+        check(pa == pb and ta.shape == tb.shape and ta.dtype == tb.dtype, f"cache trees differ at {pa} / {pb}")
+        worst = max(worst, float((ta.double().cpu() - tb.double().cpu()).abs().max()) if ta.numel() else 0.0)
+    return worst
+
+
+def _to(tree, dev):
+    from repro_torch.models.lm import tree_map
+
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def lm_cross_device(dev) -> dict:
+    """All ten reduced architectures in f32 with TF32 off: ``forward``,
+    ``prefill`` and eight decode steps on ``dev`` equal to the CPU's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import decode_step, forward, init_caches, init_params
+    from repro_torch.serve import prefill
+
+    cpu = torch.device("cpu")
+    out = {}
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = get_config(arch).reduced()
+        tol = LM_RECURRENT_TOL if arch in LM_RECURRENT else LM_F32_TOL
+        p_cpu = init_params(cfg, torch.Generator().manual_seed(LM_SEED + i), device="cpu")
+        p_dev = _to(p_cpu, dev)
+        b_cpu = _lm_batch(cfg, np.random.default_rng(LM_SEED + i), 2, 20, cpu)
+        b_dev = _to(b_cpu, dev)
+        errs = {}
+        with torch.no_grad():
+            errs["forward"] = float((forward(cfg, p_dev, b_dev)[0].cpu() - forward(cfg, p_cpu, b_cpu)[0]).abs().max())
+            (la, ca), (lb, cb) = prefill(cfg, p_dev, b_dev), prefill(cfg, p_cpu, b_cpu)
+            errs["prefill"] = max(float((la.cpu() - lb).abs().max()), _tree_err(ca, cb))
+            c_dev, c_cpu = init_caches(cfg, 2, 12, device=dev), init_caches(cfg, 2, 12, device="cpu")
+            step_rng = np.random.default_rng(LM_SEED + 100 + i)
+            worst = 0.0
+            for _ in range(8):
+                s_cpu = _lm_step_input(cfg, step_rng)
+                (ld, c_dev), (lc, c_cpu) = decode_step(cfg, p_dev, c_dev, _to(s_cpu, dev)), decode_step(cfg, p_cpu, c_cpu, s_cpu)
+                worst = max(worst, float((ld.cpu() - lc).abs().max()))
+            errs["decode"] = max(worst, _tree_err(c_dev, c_cpu))
+        out[arch] = errs
+        check(all(e <= tol for e in errs.values()), f"{arch} reduced: {dev} against cpu {errs} above {tol}")
+        print(f"  {arch:18s} reduced f32, {dev} vs cpu max |diff|: forward {errs['forward']:.3g}, "
+              f"prefill {errs['prefill']:.3g}, 8 decode steps {errs['decode']:.3g} (tolerance {tol:g})")
+    return out
+
+
+def _logit_errs(got, want) -> tuple:
+    d = (got.float() - want.float()).abs()
+    return float(d.max()), float(d.mean())
+
+
+def _check_bf16(label: str, got, want) -> tuple:
+    import torch
+
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all()), f"{label}: non-finite logits")
+    mx, mean = _logit_errs(got, want)
+    check(mx <= LM_BF16_MAX and mean <= LM_BF16_MEAN,
+          f"{label}: max |diff| {mx:.4f} (limit {LM_BF16_MAX}), mean {mean:.5f} (limit {LM_BF16_MEAN})")
+    return mx, mean
+
+
+def _peak_gib(dev) -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
+
+
+def _reset_peak(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def lm_serve_phase(dev, card: str, cfg=None, requests: int = LM_REQUESTS, lengths=LM_PROMPT_LENGTHS,
+                   len_buckets=LM_LEN_BUCKETS, new_tokens: int = LM_NEW_TOKENS) -> dict:
+    """``stablelm_1_6b`` at full width and depth: seeded requests through
+    ``BucketedBatcher``, drained lot by lot. Per lot: the prefill step's
+    next-token logits; the serve step over ``init_caches(B, bucket + new)``
+    fed the bucket's tokens, each position's logits against ``forward``'s
+    and the last one against the prefill step; then greedy decoding."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_caches, init_params
+    from repro_torch.models.lm import tree_items
+    from repro_torch.serve import BucketedBatcher, make_prefill_step, make_serve_step
+
+    cfg = cfg or get_config(LM_SERVED)
+    t_phase = time.perf_counter()
+    _reset_peak(dev)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, device=dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    rng = np.random.default_rng(LM_SEED)
+    batcher = BucketedBatcher(len_buckets=len_buckets, batch_buckets=LM_BATCH_BUCKETS)
+    lens = rng.integers(lengths[0], lengths[1] + 1, requests)
+    for n in lens:
+        batcher.submit(rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32))
+    print(f"  {cfg.name}: {n_params:,} parameters ({4 * n_params / 1e9:.2f} GB f32), {cfg.dtype} compute, "
+          f"initialised on {dev} in {init_s:.2f} s; prompts {sorted(lens.tolist())}")
+    prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+    lots, largest = [], None
+    while batcher.n_pending:
+        lot, ids = batcher.next_batch(max_batch=requests)
+        toks = torch.from_numpy(lot["tokens"]).to(dev)
+        b, n = toks.shape
+        prefill_step(params, {"tokens": toks})  # warm-up at this shape
+        _sync(dev)
+        t0 = time.perf_counter()
+        last = prefill_step(params, {"tokens": toks})
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        with torch.no_grad():
+            full, _ = forward(cfg, params, {"tokens": toks})
+        caches = init_caches(cfg, b, n + new_tokens, device=dev)
+        fed = torch.empty((b, n, cfg.vocab_size), dtype=torch.float32, device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for t in range(n):
+            lg, caches = serve_step(params, caches, {"tokens": toks[:, t : t + 1]})
+            fed[:, t] = lg[:, 0]
+        _sync(dev)
+        fed_s = time.perf_counter() - t0
+        tok = fed[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        generated = [tok]
+        t0 = time.perf_counter()
+        for _ in range(new_tokens):
+            lg, caches = serve_step(params, caches, {"tokens": tok})
+            tok = lg[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+            generated.append(tok)
+        _sync(dev)
+        decode_s = time.perf_counter() - t0
+        check(bool(torch.isfinite(lg).all()), f"lot {ids}: non-finite logits in greedy decoding")
+        check(int(caches["0"]["idx"][0]) == n + new_tokens, f"lot {ids}: cache index {caches['0']['idx']}")
+        fed_err = _check_bf16(f"lot {ids}: serve step against forward", fed, full)
+        last_err = _check_bf16(f"lot {ids}: last fed position against the prefill step", fed[:, -1:], last)
+        gen_ids = torch.cat(generated, 1).cpu()
+        check(bool(((gen_ids >= 0) & (gen_ids < cfg.vocab_size)).all()), f"lot {ids}: token out of range")
+        row = {"ids": ids, "batch": b, "bucket": n, "prompt_lens": [int(lens[i]) for i in ids],
+               "prefill_s": prefill_s, "prefill_tokens_per_s": b * n / prefill_s,
+               "fed_ms_per_step": 1e3 * fed_s / n, "decode_ms_per_step": 1e3 * decode_s / new_tokens,
+               "fed_max_err": fed_err[0], "fed_mean_err": fed_err[1], "last_vs_prefill_max_err": last_err[0]}
+        lots.append(row)
+        print(f"  lot {ids}: B={b} bucket {n}: prefill {row['prefill_tokens_per_s']:,.0f} tokens/s "
+              f"({prefill_s * 1e3:.2f} ms); serve step fed {row['fed_ms_per_step']:.3f} ms/step, greedy "
+              f"{row['decode_ms_per_step']:.3f} ms/step over {new_tokens}; vs forward max |diff| {fed_err[0]:.4f} "
+              f"mean {fed_err[1]:.5f}, last vs prefill {last_err[0]:.4f} [{card}]")
+        del full, fed, caches
+        if largest is None or b * n > largest.numel():
+            largest = toks
+    peak = _peak_gib(dev)
+    seconds = time.perf_counter() - t_phase
+    print(f"  {cfg.name} served {requests} requests in {len(lots)} lots: peak {peak:.2f} GiB, {seconds:.1f} s [{card}]")
+    profiled = None
+    if dev.type == "cuda":
+        # where a step's time goes: device busy share of one serve step and
+        # one prefill step at the largest lot's shape
+        b, n = largest.shape
+        caches = init_caches(cfg, b, n + new_tokens, device=dev)
+        one = {"tokens": largest[:, :1]}
+        profiled = {
+            "serve_step": _profile_window(f"one serve step, B={b}, cache {n + new_tokens} [{card}]",
+                                          lambda: serve_step(params, caches, one)),
+            "prefill_step": _profile_window(f"one prefill step, B={b} x {n} tokens [{card}]",
+                                            lambda: prefill_step(params, {"tokens": largest})),
+        }
+    del params
+    return {"arch": cfg.name, "params": n_params, "init_s": init_s, "lots": lots, "peak_gib": peak,
+            "seconds": seconds, "profile": profiled}
+
+
+def lm_cut(cfg):
+    """Full width, cut in depth to one group of the pattern (at least two
+    layers: recurrentgemma 19, xlstm 8, the others 2)."""
+    import dataclasses
+
+    period = cfg.pattern_period
+    return dataclasses.replace(cfg, n_layers=period if period > 1 else 2)
+
+
+class _DropCounter:
+    """Counts the MoE router's kept and dropped assignments while active."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route = moe, moe._route
+        self.assigned = self.dropped = 0
+        self.capacity = None
+
+        def counting(params, cfg, xt):
+            out = self.route(params, cfg, xt)
+            pos, cap = out[2], out[3]
+            self.assigned += pos.numel()
+            self.dropped += int((pos >= cap).sum())
+            self.capacity = cap
+            return out
+
+        moe._route = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
+
+
+def _serve_vs_forward(cfg, params, b: dict, steps: int, dev):
+    """``steps`` serve steps from empty caches against ``forward`` on the
+    same ``steps`` inputs: (serve logits, forward logits)."""
+    import torch
+
+    from repro_torch.models import forward, init_caches
+    from repro_torch.serve import make_serve_step
+
+    serve_step = make_serve_step(cfg)
+    first = {k: v[:, :steps] for k, v in b.items()}
+    with torch.no_grad():
+        full, _ = forward(cfg, params, first)
+    caches = init_caches(cfg, 2, steps, device=dev)
+    outs = []
+    for t in range(steps):
+        lg, caches = serve_step(params, caches, _lm_steps(first, t))
+        outs.append(lg)
+    return torch.cat(outs, 1), full
+
+
+def lm_zoo_phase(dev, card: str, cut=lm_cut, seq: int = LM_SEQ, steps: int = LM_STEPS) -> dict:
+    """Every other architecture at full width, cut in depth by ``cut``:
+    ``forward`` at B = 2, S = ``seq``; ``steps`` serve steps from empty caches
+    against ``forward`` (xlstm: finite, and finding (b)'s gap); mixtral under
+    the four capacity policies; stablelm chunked against dense, and with the
+    int8 KV cache and bf16 decode scores."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.lm import tree_items
+
+    out = {}
+    for i, arch in enumerate(ARCH_IDS):
+        if arch in LM_EXCUSED:
+            print(f"  {arch}: left out: {LM_EXCUSED[arch]}")
+            out[arch] = {"left_out": LM_EXCUSED[arch]}
+            continue
+        cfg = cut(get_config(arch))
+        t_arch = time.perf_counter()
+        _reset_peak(dev)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(LM_SEED + i), device=dev)
+        n_params = sum(t.numel() for _, t in tree_items(params))
+        b = _lm_batch(cfg, np.random.default_rng(LM_SEED + i), 2, seq, dev)
+        with torch.no_grad():
+            forward(cfg, params, b)  # warm-up
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, aux = forward(cfg, params, b)
+            _sync(dev)
+        fwd_ms = 1e3 * (time.perf_counter() - t0)
+        check(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux)), f"{arch}: non-finite forward")
+        row = {"layers": cfg.n_layers, "params": n_params, "forward_ms": fwd_ms,
+               "forward_shape": list(logits.shape)}
+        del logits
+        # decode computes causal attention: paligemma's prefix mask is bidirectional
+        # over its first n_prefix positions, so its reference is the causal forward
+        ref_cfg = dataclasses.replace(cfg, prefix_lm=False) if cfg.prefix_lm else cfg
+        steps_b = {"tokens": b["tokens"]} if cfg.prefix_lm else b
+        if cfg.ffn_type == "moe":
+            # no drops in either (decode routes B tokens, forward B x steps):
+            # the comparison is of attention and caches
+            ref_cfg = dataclasses.replace(ref_cfg, capacity_policy="full")
+        served, full = _serve_vs_forward(ref_cfg, params, steps_b, steps, dev)
+        if arch == "xlstm_1_3b":
+            check(bool(torch.isfinite(served).all()), f"{arch}: non-finite serve-step logits")
+            row["finding_b_gap"] = _logit_errs(served, full)[0]
+            note = f"finding (b): serve steps vs forward max |diff| {row['finding_b_gap']:.4f} (the reference's gap)"
+        else:
+            row["serve_max_err"], row["serve_mean_err"] = _check_bf16(f"{arch}: serve steps against forward",
+                                                                      served, full)
+            note = f"{steps} serve steps vs forward max |diff| {row['serve_max_err']:.4f} mean {row['serve_mean_err']:.5f}"
+        del served, full
+        if arch == "mixtral_8x7b":
+            row["policies"] = lm_capacity_policies(cfg, params, b, card)
+        if arch == LM_SERVED:
+            row.update(lm_attention_variants(cfg, params, b, steps, dev, card))
+        row["peak_gib"] = _peak_gib(dev)
+        row["seconds"] = time.perf_counter() - t_arch
+        print(f"  {arch:18s} {cfg.n_layers} layers, {n_params:,} parameters: forward B=2 S={_seq_len(b)} "
+              f"{fwd_ms:.2f} ms; {note}; peak {row['peak_gib']:.2f} GiB, {row['seconds']:.1f} s [{card}]")
+        out[arch] = row
+        del params, b
+    return out
+
+
+def _seq_len(b: dict) -> int:
+    """Positions in a batch: patch embeddings and tokens together."""
+    return sum(v.shape[1] for v in b.values())
+
+
+def lm_capacity_policies(cfg, params, b: dict, card: str) -> dict:
+    """mixtral's forward under the four capacity policies: the capacity C,
+    the share of dropped assignments, and the logits' distance from the
+    fully oblivious buffer (``full``: no drops)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import forward
+
+    rows, ref = {}, None
+    for policy in ("full", "const", "reflex_tlap", "reflex_beta"):
+        pcfg = dataclasses.replace(cfg, capacity_policy=policy)
+        with _DropCounter() as drops, torch.no_grad():
+            logits, _ = forward(pcfg, params, b)
+        check(bool(torch.isfinite(logits).all()), f"mixtral {policy}: non-finite logits")
+        ref = logits if ref is None else ref
+        share = drops.dropped / max(drops.assigned, 1)
+        rows[policy] = {"capacity": drops.capacity, "dropped": drops.dropped, "assigned": drops.assigned,
+                        "dropped_share": share, "max_err_vs_full": _logit_errs(logits, ref)[0]}
+        print(f"    capacity_policy={policy:11s}: C={drops.capacity} of {_seq_len(b) * 2} tokens, dropped "
+              f"{drops.dropped}/{drops.assigned} assignments ({100 * share:.2f} %), logits vs full max |diff| "
+              f"{rows[policy]['max_err_vs_full']:.4f} [{card}]")
+        del logits
+    check(rows["full"]["dropped"] == 0, "the fully oblivious capacity dropped an assignment")
+    return rows
+
+
+def lm_attention_variants(cfg, params, b: dict, steps: int, dev, card: str) -> dict:
+    """stablelm: chunked attention against dense, and the int8 KV cache with
+    bf16 decode scores against forward."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import forward
+
+    chunked = dataclasses.replace(cfg, attn_impl="chunked", attn_chunk=_seq_len(b) // 4)
+    with torch.no_grad():
+        dense_logits, _ = forward(cfg, params, b)
+        chunked_logits, _ = forward(chunked, params, b)
+    chunk_err = _check_bf16("stablelm chunked against dense", chunked_logits, dense_logits)
+    del dense_logits, chunked_logits
+    quant = dataclasses.replace(cfg, kv_quant=True, decode_score_dtype="bf16")
+    served, full = _serve_vs_forward(quant, params, b, steps, dev)
+    check(bool(torch.isfinite(served).all()), "stablelm kv_quant: non-finite logits")
+    quant_err = _logit_errs(served, full)
+    print(f"    stablelm attn_impl=chunked ({chunked.attn_chunk}-key chunks) vs dense max |diff| {chunk_err[0]:.4f}; "
+          f"kv_quant int8 + bf16 decode scores, {steps} serve steps vs forward max |diff| {quant_err[0]:.4f} "
+          f"mean {quant_err[1]:.5f} [{card}]")
+    return {"chunked_max_err": chunk_err[0], "kv_quant_max_err": quant_err[0], "kv_quant_mean_err": quant_err[1]}
+
+
+def lm_phase(dev, card: str) -> dict:
+    """Phase 11: cross-device at the reduced configs, then stablelm served at
+    full width and depth, then the other architectures at full width."""
+    import torch
+
+    t_phase = time.perf_counter()
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")  # no TF32 in the f32 comparisons
+    try:
+        print("  cross-device: the ten reduced architectures, f32, TF32 off")
+        cross = lm_cross_device(dev)
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    print(f"  {LM_SERVED} at full width and depth: {LM_REQUESTS} requests of {LM_PROMPT_LENGTHS[0]}-"
+          f"{LM_PROMPT_LENGTHS[1]} tokens, BucketedBatcher{LM_LEN_BUCKETS}x{LM_BATCH_BUCKETS}, "
+          f"{LM_NEW_TOKENS} greedy tokens each")
+    served = lm_serve_phase(dev, card)
+    print(f"  every other architecture at full width, one group of its pattern: forward B=2 S={LM_SEQ}, "
+          f"{LM_STEPS} serve steps from empty caches")
+    zoo = lm_zoo_phase(dev, card)
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 11 in {seconds:.1f} s [{card}]")
+    return {"cross_device": cross, "served": served, "zoo": zoo, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # 5. (--profile) device-time breakdown of the two heaviest operators
 # ---------------------------------------------------------------------------
 
@@ -2244,6 +2722,8 @@ def _kernel_category(name: str) -> str:
     for kernel in ("rss_gate", "shuffle_gather", "ks_prefix", "and_fold", "a2b", "bit2a", "bitonic_swap"):
         if kernel in low:
             return f"{kernel} kernel"
+    if "gemm" in low or "xmma" in low or "cutlass" in low or "nvjet" in low:
+        return "matmul (cuBLAS)"
     if "sort" in low or "radix" in low:
         return "sort (torch)"
     if "index" in low or "gather" in low or "scatter" in low:
@@ -2453,9 +2933,12 @@ def main(argv=None) -> int:
     print("  64-bit builds timed at the circuits' shapes")
     wide_timing = time_wide(dev, device_generator(dev, 11))
     print(f"  sort&cut: the paper's four modes over the sort-merge {', '.join(SORTCUT_QUERIES)} at "
-          f"n={ROWS_PER_TABLE} (the product-join dosage_study at n={SORTCUT_PRODUCT_ROWS})")
-    sortcut = sortcut_phase(dev, ROWS_PER_TABLE, SORTCUT_PRODUCT_ROWS)
+          f"n={SORTCUT_ROWS} (the product-join dosage_study at n={SORTCUT_PRODUCT_ROWS})")
+    sortcut = sortcut_phase(dev, SORTCUT_ROWS, SORTCUT_PRODUCT_ROWS)
     print(f"  phase 10 in {time.perf_counter() - t10:.1f} s")
+
+    print("[11] the LM side's serving path (models, configs, serve): no TPU kernel lies on it")
+    lm = lm_phase(dev, card)
 
     # launches on the main paths: phase 3's runs, phase 6's batches, phase
     # 8's submits and batch, phase 9's networked submits and phase 10's
@@ -2490,7 +2973,7 @@ def main(argv=None) -> int:
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                "n": ROWS_PER_TABLE, "later_n": LATER_ROWS, "three_join_n": THREE_JOIN_ROWS, "big_n": BIG_ROWS, "build_s": build_s, "total_s": total_s, "full": full,
                "timing": timing, "profile": profiled, "batch": [batch, stacked], "tracing": traced, "service": service, "runtime": runtime,
-               "ring64": ring64, "wide_timing": wide_timing, "sortcut": sortcut, "summary": summary}
+               "ring64": ring64, "wide_timing": wide_timing, "sortcut": sortcut, "lm": lm, "summary": summary}
     print(f"total {total_s:.1f} s")
     if args.out:
         out = Path(args.out)

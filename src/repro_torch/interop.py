@@ -3,8 +3,11 @@
 The reference hands its share triples and PRF pair keys over as numpy
 ``uint32`` (ring-64 shares, under ``jax_enable_x64``, as ``uint64``); these
 turn them into the port's tensors (int32 or int64 ring words on a device;
-keys as (2,) / (3, 2) int32 CPU tensors). Only numpy goes in — this module
-imports neither jax nor the reference.
+keys as (2,) / (3, 2) int32 CPU tensors). The LM side's parameter and
+cache trees (nested dicts of numpy arrays, as ``jax.device_get`` gives
+them) cross with :func:`params_from_numpy` / :func:`caches_from_numpy` and
+back with :func:`params_to_numpy` / :func:`caches_to_numpy`. Only numpy goes
+in — this module imports neither jax nor the reference.
 """
 from __future__ import annotations
 
@@ -17,9 +20,18 @@ from .config import resolve_device
 from .core.prf import PRFSetup
 from .core.ring import RING32, RING64, from_numpy
 from .core.sharing import BShare
+from .models.lm import tree_map
 from .ops.table import SecretTable
 
-__all__ = ["key_from_numpy", "prf_from_numpy", "tables_from_numpy"]
+__all__ = [
+    "key_from_numpy",
+    "prf_from_numpy",
+    "tables_from_numpy",
+    "params_from_numpy",
+    "caches_from_numpy",
+    "params_to_numpy",
+    "caches_to_numpy",
+]
 
 
 def key_from_numpy(key) -> torch.Tensor:
@@ -52,3 +64,45 @@ def tables_from_numpy(
     for name, (cols, valid) in shares_by_table.items():
         out[name] = SecretTable({c: share(s) for c, s in cols.items()}, share(valid))
     return out
+
+
+def _tensor_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits across
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's bfloat16, as JAX uses it
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_numpy(tree: Dict, device=None) -> Dict:
+    """The reference's parameter tree (nested dicts of numpy arrays, paths,
+    shapes and dtypes kept) -> the port's, on ``device`` (default
+    ``"cuda"``; raises without a card unless ``device="cpu"``)."""
+    device = resolve_device(device)
+    return tree_map(lambda a: _tensor_from_numpy(a, device), tree)
+
+
+def caches_from_numpy(tree: Dict, device=None) -> Dict:
+    """The reference's decode caches (group-stacked, ``idx`` int32 per
+    group; int8 values and bfloat16 scales under ``kv_quant``) -> the port's."""
+    device = resolve_device(device)
+    return tree_map(lambda a: _tensor_from_numpy(a, device), tree)
+
+
+def params_to_numpy(tree: Dict) -> Dict:
+    """The port's parameter tree -> nested dicts of numpy arrays."""
+    return tree_map(_tensor_to_numpy, tree)
+
+
+def caches_to_numpy(tree: Dict) -> Dict:
+    """The port's decode caches -> nested dicts of numpy arrays (bfloat16
+    as ``ml_dtypes.bfloat16``, the dtype JAX hands out)."""
+    return tree_map(_tensor_to_numpy, tree)

@@ -761,3 +761,76 @@ def test_ring64_circuits_on_cuda_equal_cpu(cuda):
     assert (lt == (x < y)).all()
     with pytest.raises(TypeError, match="ring-32"):
         shuffle_gather(_words64(rng, (3, 8, 1), cuda), torch.arange(8, device=cuda))
+
+
+# -- the LM side: plain PyTorch, no kernel; cuda against cpu -------------------------------
+
+from repro_torch.configs import ARCH_IDS as LM_ARCH_IDS  # noqa: E402
+
+LM_RECURRENT = ("recurrentgemma_9b", "xlstm_1_3b")
+
+
+def _lm_tree_to(tree, device):
+    return {k: _lm_tree_to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def _lm_inputs(cfg, rng, s):
+    out = {}
+    if cfg.input_mode == "embeddings":
+        n_emb = cfg.n_prefix if cfg.prefix_lm and cfg.n_prefix else s
+        out["embeds"] = torch.from_numpy(rng.standard_normal((2, n_emb, cfg.d_model)).astype(np.float32))
+        if not (cfg.prefix_lm and cfg.n_prefix):
+            return out
+    out["tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, s)).astype(np.int32))
+    return out
+
+
+@pytest.mark.parametrize("arch", LM_ARCH_IDS)
+def test_lm_reduced_on_cuda_equals_cpu(cuda, arch):
+    # f32 without TF32: forward, prefill and four decode steps within the CPU
+    # tests' tolerances (1e-4; 5e-3 for the recurrent families)
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_caches, init_params
+    from repro_torch.serve import prefill
+
+    tol = 5e-3 if arch in LM_RECURRENT else 1e-4
+    cfg = get_config(arch).reduced()
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    p_gpu = _lm_tree_to(p_cpu, cuda)
+    rng = np.random.default_rng(2)
+    b = _lm_inputs(cfg, rng, 20)
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with torch.no_grad():
+            torch.testing.assert_close(forward(cfg, p_gpu, _lm_tree_to(b, cuda))[0].cpu(), forward(cfg, p_cpu, b)[0],
+                                       rtol=tol, atol=tol)
+            (lg, cg), (lc, cc) = prefill(cfg, p_gpu, _lm_tree_to(b, cuda)), prefill(cfg, p_cpu, b)
+            torch.testing.assert_close(lg.cpu(), lc, rtol=tol, atol=tol)
+            torch.testing.assert_close(_lm_tree_to(cg, "cpu"), cc, rtol=tol, atol=tol)
+            c_gpu, c_cpu = init_caches(cfg, 2, 8, device=cuda), init_caches(cfg, 2, 8, device="cpu")
+            for _ in range(4):
+                step = {k: v[:, :1] for k, v in _lm_inputs(cfg, rng, 1).items()}
+                (lg, c_gpu), (lc, c_cpu) = (decode_step(cfg, p_gpu, c_gpu, _lm_tree_to(step, cuda)),
+                                            decode_step(cfg, p_cpu, c_cpu, step))
+                torch.testing.assert_close(lg.cpu(), lc, rtol=tol, atol=tol)
+            torch.testing.assert_close(_lm_tree_to(c_gpu, "cpu"), c_cpu, rtol=tol, atol=tol)
+    finally:
+        torch.set_float32_matmul_precision(precision)
+
+
+def test_lm_entry_points_run_on_cuda_by_default(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM, decode_step, init_caches, init_params
+    from repro_torch.serve import make_serve_step
+
+    cfg = get_config("mixtral_8x7b").reduced()
+    params = init_params(cfg)
+    assert params["embed"].device.type == "cuda"
+    caches = init_caches(cfg, 2, 8)
+    assert caches["0"]["k"].device.type == "cuda"
+    logits, caches = decode_step(cfg, params, caches, {"tokens": torch.zeros((2, 1), dtype=torch.int32, device=cuda)})
+    assert logits.device.type == "cuda" and logits.shape == (2, 1, cfg.vocab_size)
+    logits, _ = make_serve_step(cfg)(params, caches, {"tokens": torch.ones((2, 1), dtype=torch.int32, device=cuda)})
+    assert bool(torch.isfinite(logits).all()) and int(caches["0"]["idx"][0]) == 1
+    assert next(TransformerLM(cfg).parameters()).device.type == "cuda"

@@ -155,7 +155,25 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
     the reference's mLSTM decode gap printed), mixtral under the four
     capacity policies (C, dropped assignments, distance from ``full``),
     stablelm chunked against dense and with the int8 KV cache and bf16
-    decode scores; ``arctic_480b`` is left out (its reason printed).
+    decode scores; ``arctic_480b`` is left out (its reason printed);
+12. the LM side's training path (``repro_torch.data.pipeline``, ``train``,
+    ``launch.train``; plain PyTorch, no TPU kernel lies on it): the ten
+    reduced architectures in f32 with TF32 off, one train step (loss,
+    gradients, then AdamW's parameters and state) on ``cuda`` equal to
+    ``cpu`` and remat on equal to remat off (per leaf, max |diff| at most
+    1e-4 times max(1, max |value|); 5e-3 for recurrentgemma and xlstm);
+    ``stablelm_1_6b`` uncut (1,644,267,520 parameters, f32 masters and
+    moments, bf16 compute, ``remat`` as its config has it) on 4 x 512-token
+    ``TokenPipeline`` batches: the first step's forward and backward with
+    remat off and on (equal loss, grad norms within 1e-3, each one's peak
+    memory), a ``grad_accum=2`` step within 5e-2 of the large batch's loss,
+    then six AdamW steps (seconds, tokens/s and the model-FLOP share 6 N T
+    over the step time against 989 TFLOP/s bf16, loss and grad norm finite,
+    the parameters moved, peak memory); then ``repro_torch.launch.train``'s
+    failure drill in-process on ``cuda`` (an uninterrupted run, a run that
+    stops at step 6 and returns 17, a resume from step 5 with the same
+    ``loss[last 5]``); no MPC kernel launches during the phase. A
+    checkpoint at full width is left out (its reason printed).
 
 The kernels line's launches sum phases 3, 6, 8, 9 and 10's sort&cut runs;
 the nested ``"u64"`` object of each kernel with a 64-bit build holds that
@@ -2714,6 +2732,255 @@ def lm_phase(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 12. the LM side's training path
+# ---------------------------------------------------------------------------
+
+# the trained architecture, uncut, and its batches: 4 x 512 tokens from
+# TokenPipeline, f32 masters, bf16 compute, remat as its config has it
+TRAIN_ARCH = "stablelm_1_6b"
+TRAIN_BATCH = 4
+TRAIN_SEQ = 512
+TRAIN_STEPS = 6
+TRAIN_SEED = 21
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak
+BF16_FLOPS_PER_S = 989e12
+# the launcher's failure drill (tests/test_torch_train_launch.py) on the card
+DRILL_ARGS = ["--arch", "stablelm-1.6b", "--reduced", "--batch", "2", "--seq", "16", "--steps", "10",
+              "--ckpt-every", "5", "--log-every", "1"]
+TRAIN_EXCUSED = ("a checkpoint at full width is left out: params and the two AdamW moments are 19.7 GB of f32 "
+                 "to write to disk per save; the drill saves and restores the reduced config on the card")
+
+
+def _scaled_err(want: dict, got: dict) -> float:
+    """max over leaves of max|got - want| / max(1, max|want|) (the training
+    tests' per-leaf rule), with every leaf of ``got`` finite."""
+    import torch
+
+    from repro_torch.models.lm import tree_items
+
+    worst = 0.0
+    for (pa, w), (pb, g) in zip(tree_items(want), tree_items(got)):
+        check(pa == pb and w.shape == g.shape and w.dtype == g.dtype, f"trees differ at {pa} / {pb}")
+        w, g = w.double().cpu(), g.double().cpu()
+        check(bool(torch.isfinite(g).all()), f"non-finite values at {pb}")
+        if w.numel():
+            worst = max(worst, float((g - w).abs().max()) / max(1.0, float(w.abs().max())))
+    return worst
+
+
+def train_cross_device(dev) -> dict:
+    """All ten reduced architectures in f32 with TF32 off: one train step on
+    ``dev`` equal to the CPU's (loss, grads, then the parameters and AdamW
+    state after the update), and remat on equal to remat off on ``dev``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.train_step import loss_and_grads
+
+    cpu = torch.device("cpu")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    out = {}
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = get_config(arch).reduced()
+        tol = LM_RECURRENT_TOL if arch in LM_RECURRENT else LM_F32_TOL
+        p_cpu = init_params(cfg, torch.Generator().manual_seed(TRAIN_SEED + i), device="cpu")
+        pipe = TokenPipeline(cfg.vocab_size, 24, 2, seed=TRAIN_SEED + i, d_model=cfg.d_model,
+                             mode=cfg.input_mode, n_prefix=cfg.n_prefix)
+        b_cpu = {k: torch.from_numpy(v) for k, v in pipe.batch_at(0).items()}
+        p_dev, b_dev = _to(p_cpu, dev), _to(b_cpu, dev)
+        l_cpu, _, g_cpu = loss_and_grads(cfg, p_cpu, b_cpu)
+        l_dev, _, g_dev = loss_and_grads(cfg, p_dev, b_dev)
+        step = make_train_step(cfg, opt)
+        new_cpu, state_cpu, m_cpu = step(p_cpu, adamw_init(p_cpu), b_cpu)
+        new_dev, state_dev, m_dev = step(p_dev, adamw_init(p_dev), b_dev)
+        errs = {
+            "loss": abs(float(l_dev) - float(l_cpu)) / max(1.0, abs(float(l_cpu))),
+            "grads": _scaled_err(g_cpu, g_dev),
+            "params": _scaled_err(new_cpu, new_dev),
+            "state": _scaled_err(state_cpu, state_dev),
+            "metrics": _scaled_err(m_cpu, m_dev),
+        }
+        l_on, _, g_on = loss_and_grads(dataclasses.replace(cfg, remat=True), p_dev, b_dev)
+        errs["remat"] = max(abs(float(l_on) - float(l_dev)), _scaled_err(g_dev, g_on))
+        out[arch] = errs
+        check(np.isfinite(float(l_dev)) and float(m_dev["grad_norm"]) > 0, f"{arch}: loss or grad_norm")
+        check(all(e <= tol for e in errs.values()), f"{arch} reduced train step: {dev} against cpu {errs} above {tol}")
+        print(f"  {arch:18s} reduced f32 train step, {dev} vs cpu scaled max |diff|: loss {errs['loss']:.3g}, "
+              f"grads {errs['grads']:.3g}, params {errs['params']:.3g}, AdamW state {errs['state']:.3g}; "
+              f"remat on vs off {errs['remat']:.3g} (tolerance {tol:g})")
+    return out
+
+
+def _synced(dev, fn):
+    """``fn()`` and its seconds on the host clock, ending in a synchronise."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def train_full_width(dev, card: str, cfg=None, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
+                     seq: int = TRAIN_SEQ) -> dict:
+    """``stablelm_1_6b`` uncut (or ``cfg``, for a rehearsal at a small
+    size): the first step's loss and grad norm with remat off and on (peak
+    memory of each forward and backward), a grad_accum=2 step against the
+    large batch, then ``steps`` AdamW steps with the config's remat:
+    seconds, tokens/s and the model-FLOP share each."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import init_params
+    from repro_torch.models.lm import tree_items
+    from repro_torch.train import AdamWConfig, adamw_init, adamw_update, make_train_step
+    from repro_torch.train.optimizer import _global_norm
+    from repro_torch.train.train_step import loss_and_grads
+
+    cfg = get_config(TRAIN_ARCH) if cfg is None else cfg
+    check(cfg.remat and cfg.dtype == "bfloat16", f"{cfg.name}: remat={cfg.remat} dtype={cfg.dtype}")
+    n_params = cfg.param_count()
+    tokens = batch * seq
+    flops = 6 * n_params * tokens
+    _reset_peak(dev)
+    params = init_params(cfg, torch.Generator(dev).manual_seed(TRAIN_SEED), dev)
+    state = adamw_init(params)
+    _sync(dev)
+    state_gib = sum(t.numel() * t.element_size() for _, t in tree_items({"p": params, "s": state})) / 2**30
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch, seed=TRAIN_SEED)
+    batches = [_to({k: torch.from_numpy(v) for k, v in pipe.batch_at(s).items()}, dev) for s in range(steps)]
+    print(f"  {cfg.name}: {n_params:,} parameters, f32 masters and AdamW moments {state_gib:.2f} GiB, "
+          f"batches {batch} x {seq}")
+
+    opt = AdamWConfig(lr=1e-4, warmup_steps=0, total_steps=100)
+    first = {}
+    for remat in (False, True):
+        _reset_peak(dev)
+        (loss, _, grads), sec = _synced(dev, lambda: loss_and_grads(dataclasses.replace(cfg, remat=remat),
+                                                                     params, batches[0]))
+        gn = float(_global_norm(grads))
+        first[remat] = {"loss": float(loss), "grad_norm": gn, "seconds": sec, "peak_gib": _peak_gib(dev)}
+        if remat:  # the update alone, on these grads (its outputs dropped)
+            _, first[remat]["adamw_seconds"] = _synced(dev, lambda: adamw_update(opt, grads, params, state)[2])
+        del grads
+        check(math.isfinite(first[remat]["loss"]) and math.isfinite(gn) and gn > 0, f"remat={remat}: {first[remat]}")
+    loss_gap = abs(first[True]["loss"] - first[False]["loss"])
+    gn_gap = abs(first[True]["grad_norm"] - first[False]["grad_norm"]) / first[False]["grad_norm"]
+    check(loss_gap <= 1e-6 * abs(first[False]["loss"]) and gn_gap <= 1e-3,
+          f"remat on vs off: loss {first[True]['loss']} / {first[False]['loss']}, grad_norm gap {gn_gap:.3g}")
+    for remat in (False, True):
+        f = first[remat]
+        print(f"    forward+backward, remat {'on ' if remat else 'off'}: loss {f['loss']:.6f} grad_norm "
+              f"{f['grad_norm']:.6f}, {f['seconds']:.3f} s (first call), peak {f['peak_gib']:.2f} GiB [{card}]")
+    print(f"    remat on vs off: |loss diff| {loss_gap:.3g}, grad_norm relative diff {gn_gap:.3g}; adamw_update "
+          f"alone {first[True]['adamw_seconds']:.4f} s [{card}]")
+
+    _reset_peak(dev)
+    out, acc_s = _synced(dev, lambda: make_train_step(cfg, opt, grad_accum=2)(params, state, batches[0]))
+    acc = out[2]
+    del out  # its params and state: 19.7 GB at full width
+    acc_gap = abs(float(acc["loss"]) - first[True]["loss"])
+    check(acc_gap < 5e-2 and math.isfinite(float(acc["grad_norm"])), f"grad_accum=2 loss gap {acc_gap}")
+    print(f"    grad_accum=2 step: loss {float(acc['loss']):.6f} (large batch {first[True]['loss']:.6f}, "
+          f"|diff| {acc_gap:.4g} < 5e-2), {acc_s:.3f} s, peak {_peak_gib(dev):.2f} GiB")
+
+    step_fn = make_train_step(cfg, opt)
+    probe = params["layers"]["0"]["mixer"]["w_q"][0, :8, :8].clone()
+    rows = []
+    _reset_peak(dev)
+    for s in range(steps):
+        (params, state, m), sec = _synced(dev, lambda: step_fn(params, state, batches[s]))
+        row = {"step": s, "seconds": sec, "tokens_per_s": tokens / sec, "mfu": flops / sec / BF16_FLOPS_PER_S,
+               "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"])}
+        rows.append(row)
+        check(math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"]), f"step {s}: {row}")
+        print(f"    step {s}: {sec:.4f} s, {row['tokens_per_s']:.1f} tokens/s, model FLOP share "
+              f"{100 * row['mfu']:.2f} % of {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16 (6 N T = {flops / 1e12:.2f} "
+              f"TFLOP), loss {row['loss']:.6f}, grad_norm {row['grad_norm']:.4f} [{card}]")
+    step_peak = _peak_gib(dev)
+    moved = float((params["layers"]["0"]["mixer"]["w_q"][0, :8, :8] - probe).abs().max())
+    check(moved > 0 and int(state["count"]) == steps, f"params moved by {moved}, count {int(state['count'])}")
+    print(f"    params moved (max |diff| of a w_q block {moved:.3g}), count {int(state['count'])}; "
+          f"peak over the steps {step_peak:.2f} GiB [{card}]")
+    del params, state, batches
+    _reset_peak(dev)
+    return {"n_params": n_params, "tokens": tokens, "flops_per_step": flops, "state_gib": state_gib,
+            "first_step": {"remat_off": first[False], "remat_on": first[True]}, "grad_accum_gap": acc_gap,
+            "grad_accum_seconds": acc_s, "steps": rows, "step_peak_gib": step_peak}
+
+
+def train_drill(dev) -> dict:
+    """The launcher's failure drill, in-process on ``dev``: an uninterrupted
+    run, a run stopped at step 6 (exit 17), its resume from step 5 with the
+    same ``loss[last 5]``."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch.train import main as train_main
+
+    def run(*extra) -> tuple:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            code = train_main(DRILL_ARGS + ["--device", str(dev), *extra])
+        return code, buf.getvalue()
+
+    def final(out: str) -> str:
+        lines = [line for line in out.splitlines() if line.startswith("final:")]
+        check(len(lines) == 1, f"no final line in {out[-500:]!r}")
+        return lines[0].split("loss[last 5]=")[1].split()[0]
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        code, whole = run("--ckpt-dir", f"{tmp}/ref")
+        check(code == 0, f"uninterrupted run exited {code}")
+        code, crash = run("--ckpt-dir", f"{tmp}/ft", "--simulate-failure", "6")
+        check(code == 17 and "[failure-sim] aborting at step 6" in crash, f"failure run exited {code}")
+        code, resumed = run("--ckpt-dir", f"{tmp}/ft")
+        check(code == 0 and "[resume] restored step 5" in resumed, f"resume exited {code}: {resumed[:300]!r}")
+        check(final(whole) == final(resumed), f"loss[last 5] {final(whole)} uninterrupted, {final(resumed)} resumed")
+    seconds = time.perf_counter() - t0
+    print(f"  failure drill on {dev}: uninterrupted, stopped at step 6 (exit 17), resumed from step 5 "
+          f"('[resume] restored step 5'); loss[last 5]={final(whole)} both; {seconds:.1f} s")
+    return {"loss_last5": final(whole), "seconds": seconds}
+
+
+def train_phase(dev, card: str) -> dict:
+    """Phase 12: the reduced archs' train step cuda = cpu, stablelm trained
+    at full width, the launcher's failure drill; no MPC kernel launches."""
+    import torch
+
+    from repro_torch.kernels import launch_counts
+
+    t_phase = time.perf_counter()
+    before = launch_counts()
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")  # no TF32 in the f32 comparisons
+    try:
+        print("  cross-device: one train step of each reduced architecture, f32, TF32 off")
+        cross = train_cross_device(dev)
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    print(f"  {TRAIN_ARCH} uncut, trained on {dev}")
+    full = train_full_width(dev, card)
+    drill = train_drill(dev)
+    print(f"  {TRAIN_EXCUSED}")
+    check(launch_counts() == before, f"MPC kernels launched during phase 12: {before} -> {launch_counts()}")
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 12 in {seconds:.1f} s, no MPC kernel launched [{card}]")
+    return {"cross_device": cross, "full": full, "drill": drill, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # 5. (--profile) device-time breakdown of the two heaviest operators
 # ---------------------------------------------------------------------------
 
@@ -2940,6 +3207,10 @@ def main(argv=None) -> int:
     print("[11] the LM side's serving path (models, configs, serve): no TPU kernel lies on it")
     lm = lm_phase(dev, card)
 
+    print("[12] the LM side's training path (pipeline, AdamW, train step with remat, checkpoints, the "
+          "launcher): no TPU kernel lies on it")
+    train = train_phase(dev, card)
+
     # launches on the main paths: phase 3's runs, phase 6's batches, phase
     # 8's submits and batch, phase 9's networked submits and phase 10's
     # sort&cut runs; a 64-bit build's, phase 10's ring-64 circuits
@@ -2973,7 +3244,7 @@ def main(argv=None) -> int:
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                "n": ROWS_PER_TABLE, "later_n": LATER_ROWS, "three_join_n": THREE_JOIN_ROWS, "big_n": BIG_ROWS, "build_s": build_s, "total_s": total_s, "full": full,
                "timing": timing, "profile": profiled, "batch": [batch, stacked], "tracing": traced, "service": service, "runtime": runtime,
-               "ring64": ring64, "wide_timing": wide_timing, "sortcut": sortcut, "lm": lm, "summary": summary}
+               "ring64": ring64, "wide_timing": wide_timing, "sortcut": sortcut, "lm": lm, "train": train, "summary": summary}
     print(f"total {total_s:.1f} s")
     if args.out:
         out = Path(args.out)

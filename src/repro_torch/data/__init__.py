@@ -1,4 +1,5 @@
 from .healthlnk import generate_healthlnk, plaintext_oracle, revealed_answer
+from .pipeline import TokenPipeline
 from .queries import (
     DIALECT_QUERIES,
     QUERY_SQL,
@@ -13,6 +14,7 @@ from .queries import (
 __all__ = [
     "DIALECT_QUERIES",
     "QUERY_SQL",
+    "TokenPipeline",
     "generate_healthlnk",
     "plaintext_oracle",
     "revealed_answer",

@@ -6,7 +6,9 @@ turn them into the port's tensors (int32 or int64 ring words on a device;
 keys as (2,) / (3, 2) int32 CPU tensors). The LM side's parameter and
 cache trees (nested dicts of numpy arrays, as ``jax.device_get`` gives
 them) cross with :func:`params_from_numpy` / :func:`caches_from_numpy` and
-back with :func:`params_to_numpy` / :func:`caches_to_numpy`. Only numpy goes
+back with :func:`params_to_numpy` / :func:`caches_to_numpy`; AdamW's state
+(``{"m", "v", "count"}``) with :func:`opt_state_from_numpy` /
+:func:`opt_state_to_numpy`. Only numpy goes
 in — this module imports neither jax nor the reference.
 """
 from __future__ import annotations
@@ -31,6 +33,8 @@ __all__ = [
     "caches_from_numpy",
     "params_to_numpy",
     "caches_to_numpy",
+    "opt_state_from_numpy",
+    "opt_state_to_numpy",
 ]
 
 
@@ -106,3 +110,14 @@ def caches_to_numpy(tree: Dict) -> Dict:
     """The port's decode caches -> nested dicts of numpy arrays (bfloat16
     as ``ml_dtypes.bfloat16``, the dtype JAX hands out)."""
     return tree_map(_tensor_to_numpy, tree)
+
+
+def opt_state_from_numpy(state: Dict, device=None) -> Dict:
+    """The reference's AdamW state (f32 moment trees, a 0-dim int32
+    ``count``) -> the port's, on ``device`` (default ``"cuda"``)."""
+    return params_from_numpy(state, device)
+
+
+def opt_state_to_numpy(state: Dict) -> Dict:
+    """The port's AdamW state -> nested dicts of numpy arrays."""
+    return params_to_numpy(state)

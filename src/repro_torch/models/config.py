@@ -8,12 +8,14 @@ attention / "R" RG-LRU / "M" mLSTM / "S" sLSTM); attention and FFN variants
 are switched by fields. ``reduced()`` derives the small same-family
 configuration the CPU tests use.
 
-Knobs that only mean something to the reference's XLA compile are kept so
-the configs compare equal, and are no-ops on one card:
+``remat`` is live: with grad mode on, ``forward`` recomputes each layer
+group in backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` of the group body). Knobs that only mean something to
+the reference's XLA compile are kept so the configs compare equal, and are
+no-ops on one card:
 
 * ``scan_layers``: the port always walks the layer groups in a Python loop
   (the reference's ``scan_layers=False`` path);
-* ``remat``: activation checkpointing waits for the training slice;
 * ``constrain_acts``, ``attn_sp``, ``zero1``, ``mla_shard``: sharding
   constraints wait for the sharding slice.
 """
@@ -73,7 +75,7 @@ class ArchConfig:
 
     # runtime
     dtype: str = "bfloat16"
-    remat: bool = True  # no-op here: waits for the training slice
+    remat: bool = True  # activation checkpointing of each layer group
     scan_layers: bool = True  # no-op here: the groups are walked in a loop
     ce_impl: str = "gather"  # gather | einsum (one-hot contraction CE)
     zero1: bool = True  # no-op here: waits for the sharding slice

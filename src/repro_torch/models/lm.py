@@ -9,7 +9,8 @@ the mixer.
 Parameters are the reference's tree: layers grouped by pattern position and
 stacked along a leading group axis, f32 master weights cast to the compute
 dtype at each call. The port walks the groups in a Python loop (the
-reference's ``scan_layers=False`` path). :class:`TransformerLM` registers
+reference's ``scan_layers=False`` path), each group under activation
+checkpointing when ``cfg.remat``. :class:`TransformerLM` registers
 the same tree in an ``nn.Module``; the functional entry points stay the
 reference's.
 
@@ -24,6 +25,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import resolve_device
 from . import attention as attn
@@ -42,6 +44,7 @@ __all__ = [
     "count_params_analytic",
     "tree_items",
     "tree_map",
+    "tree_unflatten",
 ]
 
 
@@ -70,6 +73,17 @@ def tree_items(tree: Dict, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor
             yield from tree_items(value, path + ".")
         else:
             yield path, value
+
+
+def tree_unflatten(like: Dict, leaves) -> Dict:
+    """A nested dict shaped like ``like`` whose leaves, in :func:`tree_items`
+    order, are ``leaves``."""
+    it = iter(leaves)
+
+    def build(node):
+        return {k: build(node[k]) for k in sorted(node)} if isinstance(node, dict) else next(it)
+
+    return build(like)
 
 
 def tree_map(fn, *trees):
@@ -162,7 +176,8 @@ class TransformerLM(_Tree):
     """The parameter tree as an ``nn.Module``: ``state_dict`` keys are the
     tree's paths (``layers.0.mixer.w_q``), ``.to(device)`` moves it, and
     :attr:`params` gives the tree back for the functional entry points.
-    Parameters do not require grad (serving); the training slice turns it on."""
+    Parameters do not require grad: ``repro_torch.train`` takes gradients
+    of the functional entry points over the tree (:attr:`params`)."""
 
     def __init__(self, cfg, params: Optional[Dict] = None, generator=None, device=None):
         super().__init__(init_params(cfg, generator, device) if params is None else params)
@@ -225,15 +240,32 @@ def _head(cfg, params, x) -> torch.Tensor:
     return (x @ head.to(x.dtype)).float()
 
 
+def _group_body(cfg, gp, x, aux, positions):
+    for pos in range(cfg.pattern_period):
+        x, a, _ = _apply_block(cfg, gp[str(pos)], cfg.block_pattern[pos], x, positions)
+        aux = aux + a
+    return x, aux
+
+
 def forward(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits, aux_loss)."""
+    """Full-sequence forward. Returns (logits, aux_loss).
+
+    With ``cfg.remat`` and grad mode on, each layer group's activations are
+    recomputed in backward instead of kept (the reference's
+    ``jax.checkpoint`` of the group body): memory changes, values do not."""
     x, positions = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    # one view per group of each stacked leaf; in backward the groups'
+    # gradients are stacked once (indexing each group would add a zero-padded
+    # full-size gradient per group and leaf)
+    groups = tree_map(lambda t: t.unbind(0), params["layers"])
     for g in range(cfg.n_groups):
-        gp = _group(params["layers"], g)
-        for pos in range(cfg.pattern_period):
-            x, a, _ = _apply_block(cfg, gp[str(pos)], cfg.block_pattern[pos], x, positions)
-            aux = aux + a
+        gp = tree_map(lambda views: views[g], groups)
+        if remat:
+            x, aux = checkpoint(_group_body, cfg, gp, x, aux, positions, use_reentrant=False)
+        else:
+            x, aux = _group_body(cfg, gp, x, aux, positions)
     return _head(cfg, params, x), aux
 
 

@@ -54,16 +54,20 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-def test_default_device_raises_without_a_card(monkeypatch):
+def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
     from repro_torch.config import resolve_device
     from repro_torch.core import threefry
     from repro_torch.data.healthlnk import generate_healthlnk
     from repro_torch.engine import Engine
     from repro_torch.interop import tables_from_numpy
+    from repro_torch.launch import train as launch_train
     from repro_torch.ops import SecretTable
+    from repro_torch.train import Checkpointer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     data = {"a": np.arange(4, dtype=np.uint32)}
+    ckpt = Checkpointer(str(tmp_path))
+    ckpt.save(1, {"params": {"w": torch.ones(2)}})
     for call in (
         lambda: resolve_device(),
         lambda: resolve_device("cuda"),
@@ -71,6 +75,9 @@ def test_default_device_raises_without_a_card(monkeypatch):
         lambda: Engine({}),
         lambda: generate_healthlnk(n=8),
         lambda: tables_from_numpy({"t": ({"a": np.zeros((3, 4), np.uint32)}, np.zeros((3, 4), np.uint32))}),
+        lambda: launch_train.main(["--reduced", "--steps", "1"]),
+        lambda: ckpt.restore(None, {"params": {"w": torch.empty(2, device="meta")}}),
+        lambda: ckpt.restore(None, {"params": {"w": torch.ones(2)}}, device="cuda"),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -78,5 +85,6 @@ def test_default_device_raises_without_a_card(monkeypatch):
     table = SecretTable.from_plaintext(data, threefry.PRNGKey(0), device="cpu")
     assert table.device.type == "cpu"
     assert Engine({"t": table}, device="cpu").device.type == "cpu"
+    assert ckpt.restore(None, {"params": {"w": torch.empty(2, device="meta")}}, device="cpu")[1]["params"]["w"].sum() == 2
     with pytest.raises(ValueError):
         Engine({"t": table}, device="meta")

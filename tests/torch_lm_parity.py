@@ -110,3 +110,72 @@ def assert_tree_close(jtree, ttree, tol_: float, what: str = ""):
             np.testing.assert_allclose(
                 g.astype(np.float32), w.astype(np.float32), rtol=tol_, atol=tol_, err_msg=f"{what} {path}"
             )
+
+
+def assert_leaves_close(jtree, ttree, tol_: float, what: str = ""):
+    """Same paths, shapes and dtypes; per leaf ``max|got - want| <= tol_ *
+    max(1, max|want|)`` (the training tests' rule: a gradient leaf is judged
+    against its own scale); integer leaves exactly."""
+    want = leaves(jtree)
+    got = dict(tree_items(caches_to_numpy(ttree)))
+    assert sorted(got) == sorted(want), (what, sorted(got), sorted(want))
+    for path, w in want.items():
+        g = got[path]
+        assert g.shape == w.shape and g.dtype == w.dtype, (what, path, g.shape, w.shape, g.dtype, w.dtype)
+        if np.issubdtype(w.dtype, np.integer):
+            np.testing.assert_array_equal(g, w, err_msg=f"{what} {path}")
+            continue
+        w64, g64 = w.astype(np.float64), g.astype(np.float64)
+        assert np.isfinite(g64).all(), f"{what} {path}: non-finite"
+        err, scale = float(np.abs(g64 - w64).max(initial=0.0)), max(1.0, float(np.abs(w64).max(initial=0.0)))
+        assert err <= tol_ * scale, f"{what} {path}: max |diff| {err:.3g} > {tol_:g} x {scale:.3g}"
+
+
+@functools.lru_cache(maxsize=None)
+def jax_value_and_grad(jcfg):
+    """``jax.value_and_grad`` of the reference's ``loss_fn`` (jitted once per
+    config and process)."""
+    from repro.models import loss_fn as ref_loss_fn
+
+    return jax.jit(jax.value_and_grad(lambda p, b: ref_loss_fn(jcfg, p, b), has_aux=True))
+
+
+def check_grads_against_reference(jcfg, tcfg, jp, tp, tol_: float, seed: int = 1):
+    """The port's ``loss_fn`` total, parts and every gradient leaf against
+    ``jax.value_and_grad`` of the reference's, on a batch with masked labels
+    (seeded by ``seed``); ``tp`` is left as it was. Returns the port's
+    gradient tree."""
+    from repro_torch.train.train_step import loss_and_grads
+
+    b = batch(jcfg, np.random.default_rng(seed), s=24, labels=True)
+    (jl, jparts), jg = jax_value_and_grad(jcfg)(jp, to_jax(b))
+    tl, tparts, tg = loss_and_grads(tcfg, tp, to_torch(b))
+    assert_close(jl, tl, tol_, "loss")
+    for k in ("ce", "aux"):
+        assert_close(jparts[k], tparts[k], tol_, k)
+    assert_leaves_close(jg, tg, tol_, f"{tcfg.name} grads")
+    assert not any(t.requires_grad for _, t in tree_items(tp))
+    return tg
+
+
+def check_loss_and_grads(arch: str, **changes):
+    """:func:`check_grads_against_reference` for ``arch``'s reduced config
+    (with ``changes``) on JAX's parameters of seed 0."""
+    jcfg, tcfg = configs(arch, **changes)
+    jp, tp = params(jcfg, 0)
+    return check_grads_against_reference(jcfg, tcfg, jp, tp, tol(arch))
+
+
+def check_remat(arch: str):
+    """Loss, parts and gradients with ``remat`` on equal them with it off,
+    bit for bit."""
+    from repro_torch.train.train_step import loss_and_grads
+
+    jcfg, tcfg = configs(arch)
+    _, tp = params(jcfg, 0)
+    tb = to_torch(batch(tcfg, np.random.default_rng(2), s=24, labels=True))
+    l_on, parts_on, g_on = loss_and_grads(dataclasses.replace(tcfg, remat=True), tp, tb)
+    l_off, parts_off, g_off = loss_and_grads(dataclasses.replace(tcfg, remat=False), tp, tb)
+    assert torch.equal(l_on, l_off) and all(torch.equal(parts_on[k], parts_off[k]) for k in parts_on)
+    for (path, a), (_, b) in zip(tree_items(g_on), tree_items(g_off)):
+        assert torch.equal(a, b), path

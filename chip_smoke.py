@@ -149,7 +149,7 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
     ms per step, peak memory and seconds; then every other architecture at
     full width cut to one group of its pattern (two layers; recurrentgemma
     19, xlstm 8): ``forward`` at B = 2, S = 256 (paligemma: 256 patch
-    embeddings then 256 tokens; musicgen: frame embeddings), 16 serve steps
+    embeddings then 256 tokens; musicgen: frame embeddings), 8 serve steps
     from empty caches against ``forward`` (paligemma against its causal
     forward; mixtral with the ``full`` capacity; xlstm only finite, with
     the reference's mLSTM decode gap printed), mixtral under the four
@@ -167,13 +167,28 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
     ``TokenPipeline`` batches: the first step's forward and backward with
     remat off and on (equal loss, grad norms within 1e-3, each one's peak
     memory), a ``grad_accum=2`` step within 5e-2 of the large batch's loss,
-    then six AdamW steps (seconds, tokens/s and the model-FLOP share 6 N T
+    then four AdamW steps (seconds, tokens/s and the model-FLOP share 6 N T
     over the step time against 989 TFLOP/s bf16, loss and grad norm finite,
     the parameters moved, peak memory); then ``repro_torch.launch.train``'s
     failure drill in-process on ``cuda`` (an uninterrupted run, a run that
     stops at step 6 and returns 17, a resume from step 5 with the same
     ``loss[last 5]``); no MPC kernel launches during the phase. A
-    checkpoint at full width is left out (its reason printed).
+    checkpoint at full width is left out (its reason printed);
+13. the LM side's multi-device stack (``repro_torch.sharding``,
+    ``launch.mesh``, ``launch.roofline``; plain PyTorch and DTensor, no TPU
+    kernel lies on it): a one-rank NCCL process group and a (1, 1)
+    ("data", "model") mesh (no fallback: a group that fails to start fails
+    the script); the ten reduced architectures in f32 with TF32 off, one
+    train step over DTensors (parameters by ``make_param_specs``, ZeRO-1
+    moments, the batch by ``batch_specs``; an axis of extent 1 replicates)
+    equal to the plain ``cuda`` step by phase 12's rule (loss, grad norm,
+    parameters and AdamW state, gathered); ``stablelm_1_6b`` uncut, one
+    sharded forward and backward on phase 12's first 4 x 512 batch, loss
+    and grad norm within phase 12's remat limits of the plain one, with
+    seconds and peak memory; then the port's roofline, counted on ``meta``,
+    of phase 11's serve step at its largest lot's shape and of phase 12's
+    train step, each bound beside the times those phases measured and the
+    ratio; no MPC kernel launches during the phase.
 
 The kernels line's launches sum phases 3, 6, 8, 9 and 10's sort&cut runs;
 the nested ``"u64"`` object of each kernel with a 64-bit build holds that
@@ -219,6 +234,8 @@ BIG_ROWS = 1 << 20
 GATHER_ROWS = 7_900_000
 # timed calls in a row per kernel measurement
 REPS = 20
+# the plain versions take 3-100 ms a call: 5 x PLAIN_REPS calls time them
+PLAIN_REPS = 4
 # rows of the hops (two one-word columns, 24 bytes a row) over which phase 4
 # times both gather routes, 6 MiB to 288 MiB (1 to 48 MiB a plane): the
 # measurement behind the size rule between them
@@ -327,8 +344,8 @@ def max_abs_err(a, b) -> int:
     return int((ua - ub).abs().max())
 
 
-def median_ms(fn) -> float:
-    """Time of one call: CUDA events around ``REPS`` calls in a row, over the
+def median_ms(fn, reps: int = REPS) -> float:
+    """Time of one call: CUDA events around ``reps`` calls in a row, over the
     count; the median of 5 such runs, after a warm-up. For a small
     kernel this is the wrapper's host time per call, as the engine sees it."""
     import torch
@@ -341,11 +358,11 @@ def median_ms(fn) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
         stop.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop) / REPS)
+        times.append(start.elapsed_time(stop) / reps)
     return statistics.median(times)
 
 
@@ -1652,7 +1669,7 @@ def timing_phase(dev, shapes: dict) -> dict:
             err = max_abs_err(gate(x, y, a, boolean), gate_plain(x, y, a, boolean))
             check(err == 0, f"rss_gate n={n} differs from its plain version")
             ms = median_ms(lambda: gate(x, y, a, boolean))
-            plain_ms = median_ms(lambda: gate_plain(x, y, a, boolean))
+            plain_ms = median_ms(lambda: gate_plain(x, y, a, boolean), PLAIN_REPS)
             bytes_moved = 12 * 4 * n  # x, y, alpha read, z written: 3 words each
             ops = 3 * 6 * n  # per share word: 3 products / ANDs and 3 sums / XORs
             bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
@@ -1711,7 +1728,7 @@ def time_gather(dev, rng, shapes: dict) -> dict:
         ms = median_ms(lambda: gather_hop(cols, index))
         direct_ms = median_ms(lambda: gather_direct(cols, index))
         plan_ms = median_ms(lambda: gather_plan(index, block_rows_for(n), block_rows_for(n)))
-        plain_ms = median_ms(lambda: [shuffle_gather_plain(c, index) for c in cols])
+        plain_ms = median_ms(lambda: [shuffle_gather_plain(c, index) for c in cols], PLAIN_REPS)
         library_ms = median_ms(lambda: [torch.index_select(c, 1, index) for c in cols])
         bound_bytes, sector_bytes = gather_cost(n, planes, ws)
         bound_ms = 1e3 * bound_bytes / HBM_BYTES_PER_S
@@ -1808,7 +1825,7 @@ def time_fused(dev, rng, shapes: dict) -> dict:
         err = max_abs_err(kernel(*args), plain(*args))
         check(err == 0, f"{name} n={n} width={width} differs from its plain version")
         ms = median_ms(lambda: kernel(*args))
-        plain_ms = median_ms(lambda: plain(*args))
+        plain_ms = median_ms(lambda: plain(*args), PLAIN_REPS)
         bytes_moved, ops = fused_cost(name, n, len(sh))
         bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
         by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S else "operations"
@@ -1843,7 +1860,7 @@ def time_bitonic(dev, rng, shapes: dict) -> dict:
     err = max(max_abs_err(stage_swap(*args), stage_swap_plain(*args)), max_abs_err(replaced(), stage_swap_plain(*args)))
     check(err == 0, f"bitonic_swap N={n} C={c} differs from its plain version or the route it replaces")
     ms = median_ms(lambda: stage_swap(*args))
-    plain_ms = median_ms(lambda: stage_swap_plain(*args))
+    plain_ms = median_ms(lambda: stage_swap_plain(*args), PLAIN_REPS)
     replaced_ms = median_ms(replaced)
     bytes_moved = 4 * (3 * n + 4 * 3 * c * n)  # mask, own, other, alpha read; out written
     ops = 3 * c * n * 8  # per column word: 1 XOR for d, 3 ANDs, 3 XORs, 1 XOR into own
@@ -2144,7 +2161,7 @@ def time_wide(dev, gen) -> dict:
         err = max_abs_err64(kernel(), plain())
         check(err == 0, f"{name} u64 {label} differs from its plain version")
         ms = median_ms(kernel)
-        plain_ms = median_ms(plain)
+        plain_ms = median_ms(plain, PLAIN_REPS)
         levels = {"ks_prefix": 6, "and_fold": 6, "a2b_fused": 6}.get(name, 0)
         bytes_moved, ops = wide_cost(name, RING64_LANES, levels, "bool=1" in label)
         bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
@@ -2300,7 +2317,7 @@ LM_LEN_BUCKETS = (128, 256, 512)
 LM_BATCH_BUCKETS = (1, 2, 4, 8)
 LM_NEW_TOKENS = 32
 LM_SEQ = 256  # forward at full width: B = 2, S = 256
-LM_STEPS = 16  # serve steps from empty caches against forward
+LM_STEPS = 8  # serve steps from empty caches against forward
 LM_SERVED = "stablelm_1_6b"
 LM_EXCUSED = {
     "arctic_480b": "one layer at full width holds 53.6 GB of f32 expert weights plus 26.8 GB of per-call "
@@ -2740,7 +2757,7 @@ def lm_phase(dev, card: str) -> dict:
 TRAIN_ARCH = "stablelm_1_6b"
 TRAIN_BATCH = 4
 TRAIN_SEQ = 512
-TRAIN_STEPS = 6
+TRAIN_STEPS = 4
 TRAIN_SEED = 21
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak
 BF16_FLOPS_PER_S = 989e12
@@ -2981,6 +2998,224 @@ def train_phase(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 13. sharding and the roofline on the card
+# ---------------------------------------------------------------------------
+
+# the one-card mesh: both production axes, each of extent 1
+SHARD_MESH = ((1, 1), ("data", "model"))
+
+
+def open_mesh(dev, store_dir: str):
+    """A one-rank process group (NCCL on a card, gloo on the CPU) joined
+    through a ``FileStore`` in ``store_dir``, and the (1, 1) ("data",
+    "model") mesh over it. No fallback: a backend that fails to start fails
+    the phase."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(store_dir, "store"), 1), rank=0,
+                            world_size=1)
+    check(dist.get_backend() == backend, f"process group backend {dist.get_backend()}, wanted {backend}")
+    return make_mesh(*SHARD_MESH, device_type=dev.type)
+
+
+def shard_cross_device(dev, mesh) -> dict:
+    """All ten reduced architectures in f32 with TF32 off: one train step
+    over DTensors on ``mesh`` (parameters by ``make_param_specs``, ZeRO-1
+    moments, the batch by ``batch_specs``) equal to the same step on plain
+    tensors on ``dev`` (loss, grad norm, then parameters and AdamW state,
+    gathered)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import init_params
+    from repro_torch.sharding import batch_specs, distribute_tree, gather_tree, is_sharded
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step, place_train_state
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    out = {}
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = get_config(arch).reduced()
+        tol = LM_RECURRENT_TOL if arch in LM_RECURRENT else LM_F32_TOL
+        params = _to(init_params(cfg, torch.Generator().manual_seed(TRAIN_SEED + i), device="cpu"), dev)
+        pipe = TokenPipeline(cfg.vocab_size, 24, 2, seed=TRAIN_SEED + i, d_model=cfg.d_model,
+                             mode=cfg.input_mode, n_prefix=cfg.n_prefix)
+        batch = _to({k: torch.from_numpy(v) for k, v in pipe.batch_at(0).items()}, dev)
+        step = make_train_step(cfg, opt)
+        t0 = time.perf_counter()
+        new, state, m = step(params, adamw_init(params), batch)
+        _sync(dev)
+        plain_s = time.perf_counter() - t0
+        p_sh, s_sh = place_train_state(cfg, params, adamw_init(params), mesh)
+        b_sh = distribute_tree(batch, batch_specs(cfg, batch, mesh), mesh)
+        check(all(is_sharded(t) for t in (p_sh["embed"], s_sh["m"]["embed"], b_sh["labels"])), f"{arch}: not DTensors")
+        t0 = time.perf_counter()
+        new_sh, state_sh, m_sh = step(p_sh, s_sh, b_sh)
+        _sync(dev)
+        sharded_s = time.perf_counter() - t0
+        errs = {
+            "loss": abs(float(m_sh["loss"]) - float(m["loss"])) / max(1.0, abs(float(m["loss"]))),
+            "grad_norm": abs(float(m_sh["grad_norm"]) - float(m["grad_norm"])) / max(1.0, float(m["grad_norm"])),
+            "params": _scaled_err(new, gather_tree(new_sh)),
+            "state": _scaled_err({"m": state["m"], "v": state["v"]},
+                                 gather_tree({"m": state_sh["m"], "v": state_sh["v"]})),
+        }
+        out[arch] = dict(errs, plain_s=plain_s, sharded_s=sharded_s)
+        check(np.isfinite(float(m_sh["loss"])) and int(state_sh["count"]) == 1, f"{arch}: loss or count")
+        check(all(e <= tol for e in errs.values()), f"{arch} sharded train step against unsharded {errs} above {tol}")
+        print(f"  {arch:18s} reduced f32 train step, DTensor on {SHARD_MESH[0]} vs plain {dev.type} scaled max "
+              f"|diff|: loss {errs['loss']:.3g}, grad_norm {errs['grad_norm']:.3g}, params {errs['params']:.3g}, "
+              f"AdamW state {errs['state']:.3g} (tolerance {tol:g}); {plain_s:.3f} s plain, {sharded_s:.3f} s "
+              f"sharded")
+    return out
+
+
+def shard_full_width(dev, card: str, mesh, cfg=None, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> dict:
+    """``stablelm_1_6b`` uncut (or ``cfg``), phase 12's first batch: one
+    forward and backward over DTensors on ``mesh`` against the same on plain
+    tensors, loss and grad norm within phase 12's remat limits, with each
+    one's seconds and peak memory."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import init_params
+    from repro_torch.sharding import batch_specs, distribute_tree, make_param_specs
+    from repro_torch.train.optimizer import _global_norm
+    from repro_torch.train.train_step import loss_and_grads
+
+    cfg = get_config(TRAIN_ARCH) if cfg is None else cfg
+    _reset_peak(dev)
+    params = init_params(cfg, torch.Generator(dev).manual_seed(TRAIN_SEED), dev)
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch, seed=TRAIN_SEED)
+    b = _to({k: torch.from_numpy(v) for k, v in pipe.batch_at(0).items()}, dev)
+    runs = {}
+    for label in ("plain", "sharded"):
+        if label == "sharded":
+            p_in = distribute_tree(params, make_param_specs(cfg, params, mesh), mesh)
+            b_in = distribute_tree(b, batch_specs(cfg, b, mesh), mesh)
+        else:
+            p_in, b_in = params, b
+        _reset_peak(dev)
+        (loss, _, grads), sec = _synced(dev, lambda: loss_and_grads(cfg, p_in, b_in))
+        gn = float(_global_norm(grads))
+        runs[label] = {"loss": float(loss), "grad_norm": gn, "seconds": sec, "peak_gib": _peak_gib(dev)}
+        del grads, p_in, b_in
+        check(math.isfinite(runs[label]["loss"]) and math.isfinite(gn) and gn > 0, f"{label}: {runs[label]}")
+    plain, sharded = runs["plain"], runs["sharded"]
+    loss_gap = abs(sharded["loss"] - plain["loss"])
+    gn_gap = abs(sharded["grad_norm"] - plain["grad_norm"]) / plain["grad_norm"]
+    check(loss_gap <= 1e-6 * abs(plain["loss"]) and gn_gap <= 1e-3,
+          f"sharded vs plain: loss {sharded['loss']} / {plain['loss']}, grad_norm gap {gn_gap:.3g}")
+    for label, r in runs.items():
+        print(f"    forward+backward {label:7s}: loss {r['loss']:.6f} grad_norm {r['grad_norm']:.6f}, "
+              f"{r['seconds']:.3f} s, peak {r['peak_gib']:.2f} GiB [{card}]")
+    print(f"    sharded vs plain: |loss diff| {loss_gap:.3g}, grad_norm relative diff {gn_gap:.3g}")
+    del params
+    _reset_peak(dev)
+    return {"runs": runs, "loss_gap": loss_gap, "grad_norm_gap": gn_gap, "batch": batch, "seq": seq}
+
+
+def _counted(label: str, cfg, step, args, shape: str, measured_s: list, card: str) -> dict:
+    """``step(*args)`` counted on ``meta`` (one card, ``chips=1``): its
+    roofline bound beside the seconds measured for that step on the card."""
+    from repro_torch.launch.roofline import CARD, Roofline, StepCounter
+
+    t0 = time.perf_counter()
+    with StepCounter() as c:
+        step(*args)
+    r = Roofline(arch=cfg.name, shape=shape, mesh="1x1", chips=1, hlo_flops=float(c.flops),
+                 hlo_bytes=float(c.bytes), collective_bytes=0.0, collectives={}, collective_counts={},
+                 model_flops=0.0)
+    bound = max(r.t_compute, r.t_memory)
+    best, median = min(measured_s), statistics.median(measured_s)
+    print(f"    {label}: counted {c.ops:,} ops, {c.flops:.4g} matmul FLOPs, {c.bytes:.4g} unfused bytes in "
+          f"{time.perf_counter() - t0:.1f} s; bound {1e3 * bound:.3f} ms ({r.bottleneck}; compute "
+          f"{1e3 * r.t_compute:.3f} ms, memory {1e3 * r.t_memory:.3f} ms at the {CARD} data sheet); measured "
+          f"{1e3 * best:.3f} ms best, {1e3 * median:.3f} ms median over {len(measured_s)} [{card}]: "
+          f"{best / bound:.2f}x and {median / bound:.2f}x the bound")
+    return {"ops": c.ops, "flops": c.flops, "bytes": c.bytes, "t_compute_s": r.t_compute,
+            "t_memory_s": r.t_memory, "bound_s": bound, "bottleneck": r.bottleneck, "measured_best_s": best,
+            "measured_median_s": median, "ratio_best": best / bound, "ratio_median": median / bound}
+
+
+def roofline_on_card(lm: dict, train: dict, card: str) -> dict:
+    """The port's roofline of the two steps phases 11 and 12 timed, counted
+    on ``meta``: ``stablelm_1_6b``'s serve step at the largest lot's shape
+    (against that lot's greedy steps) and its 4 x 512 train step (against
+    phase 12's timed steps)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import abstract_params, init_caches
+    from repro_torch.serve import make_serve_step
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    params = abstract_params(cfg)
+    lot = max(lm["served"]["lots"], key=lambda r: (r["batch"] * r["bucket"], r["bucket"]))
+    b, cap = lot["batch"], lot["bucket"] + LM_NEW_TOKENS
+    caches = init_caches(cfg, b, cap, device="meta")
+    tok = {"tokens": torch.empty((b, 1), dtype=torch.int32, device="meta")}
+    out = {"serve": _counted(f"serve step B={b}, cache {cap}", cfg, make_serve_step(cfg), (params, caches, tok),
+                             "decode", [lot["decode_ms_per_step"] / 1e3], card)}
+    full = train["full"]
+    tokens = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32, device="meta") for k in ("tokens", "labels")}
+    out["train"] = _counted(f"train step {TRAIN_BATCH} x {TRAIN_SEQ}, remat on", cfg,
+                            make_train_step(cfg, AdamWConfig()), (params, adamw_init(params), tokens), "train",
+                            [r["seconds"] for r in full["steps"]], card)
+    out["serve"]["lot"] = {"batch": b, "bucket": lot["bucket"], "cache": cap}
+    return out
+
+
+def shard_phase(dev, card: str, lm: dict, train: dict) -> dict:
+    """Phase 13: a one-rank process group and a (1, 1) mesh on ``dev``; the
+    reduced archs' sharded train step = the plain one; stablelm uncut
+    sharded = plain; then the roofline of phases 11 and 12's steps beside
+    their measured times. No MPC kernel launches."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import launch_counts
+
+    t_phase = time.perf_counter()
+    before = launch_counts()
+    with tempfile.TemporaryDirectory() as store_dir:
+        mesh = open_mesh(dev, store_dir)
+        try:
+            print(f"  process group {dist.get_backend()}, world {dist.get_world_size()}; mesh "
+                  f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on {mesh.device_type}")
+            precision = torch.get_float32_matmul_precision()
+            torch.set_float32_matmul_precision("highest")  # no TF32 in the f32 comparisons
+            try:
+                print("  cross-check: one train step of each reduced architecture, f32, TF32 off, sharded vs plain")
+                cross = shard_cross_device(dev, mesh)
+            finally:
+                torch.set_float32_matmul_precision(precision)
+            print(f"  {TRAIN_ARCH} uncut, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, sharded vs plain on {dev}")
+            full = shard_full_width(dev, card, mesh)
+        finally:
+            dist.destroy_process_group()
+    print("  the port's roofline (repro_torch.launch.roofline, counted on meta, one card) beside phases 11 and "
+          "12's measured steps")
+    roof = roofline_on_card(lm, train, card)
+    check(launch_counts() == before, f"MPC kernels launched during phase 13: {before} -> {launch_counts()}")
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 13 in {seconds:.1f} s, no MPC kernel launched [{card}]")
+    return {"cross_device": cross, "full": full, "roofline": roof, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # 5. (--profile) device-time breakdown of the two heaviest operators
 # ---------------------------------------------------------------------------
 
@@ -3211,6 +3446,10 @@ def main(argv=None) -> int:
           "launcher): no TPU kernel lies on it")
     train = train_phase(dev, card)
 
+    print("[13] the LM side's multi-device stack (sharding rules, a one-rank NCCL mesh, the roofline): no TPU "
+          "kernel lies on it")
+    sharded = shard_phase(dev, card, lm, train)
+
     # launches on the main paths: phase 3's runs, phase 6's batches, phase
     # 8's submits and batch, phase 9's networked submits and phase 10's
     # sort&cut runs; a 64-bit build's, phase 10's ring-64 circuits
@@ -3244,7 +3483,8 @@ def main(argv=None) -> int:
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                "n": ROWS_PER_TABLE, "later_n": LATER_ROWS, "three_join_n": THREE_JOIN_ROWS, "big_n": BIG_ROWS, "build_s": build_s, "total_s": total_s, "full": full,
                "timing": timing, "profile": profiled, "batch": [batch, stacked], "tracing": traced, "service": service, "runtime": runtime,
-               "ring64": ring64, "wide_timing": wide_timing, "sortcut": sortcut, "lm": lm, "train": train, "summary": summary}
+               "ring64": ring64, "wide_timing": wide_timing, "sortcut": sortcut, "lm": lm, "train": train,
+               "sharding": sharded, "summary": summary}
     print(f"total {total_s:.1f} s")
     if args.out:
         out = Path(args.out)

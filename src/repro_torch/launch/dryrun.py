@@ -1,0 +1,221 @@
+"""Multi-pod dry-run: run every (arch x shape x mesh) cell's step, sharded,
+on ``meta`` tensors over a fake process group, and count it.
+
+A port of ``repro.launch.dryrun``. Where the reference lowers and compiles
+each cell's jitted step on 512 XLA placeholder devices, the port opens a
+fake process group of 256 or 512 ranks in this one process
+(:func:`repro_torch.launch.mesh.fake_process_group`), builds the production
+mesh over it and runs the step once over DTensors whose local shards are
+``meta`` tensors: nothing is allocated, computed or sent, but every
+operation and every collective DTensor issues happens. That the whole
+sharded step runs is the per-cell proof, the counterpart of the reference's
+lower-and-compile.
+
+For every cell:
+  * build abstract params / optimizer state / caches / batch (``meta``),
+  * lay them out by ``repro_torch.sharding`` (params by
+    ``make_param_specs``, AdamW moments by ``zero1_specs`` with
+    ``cfg.zero1``, batch and caches by ``batch_specs`` / ``cache_specs``),
+  * run the train / prefill / serve step under a :class:`StepCounter`,
+  * record its FLOPs, bytes and collective bytes -> roofline terms
+    (``launch/roofline.py``), and the per-device argument bytes,
+  * append the row to a JSON artifact (``artifacts/dryrun_torch.json``)
+    that ``launch/render_experiments.py`` renders into ``ROOFLINE_TORCH.md``.
+
+The port walks the layer groups in a Python loop (``scan_layers`` is a
+no-op), so the counter sees every layer of the full depth; the reference's
+1-group / 2-group extrapolation, which exists because ``lax.scan`` hides the
+body's cost from XLA's cost analysis, is not needed.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun                      # all cells
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mixtral-8x7b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --multi-pod-only
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import math
+import os
+import time
+import traceback
+from typing import Dict, Iterator, Optional
+
+import torch
+
+from ..configs import ARCH_IDS, get_config
+from ..configs.shapes import SHAPE_NAMES, input_specs, shape_applicable
+from ..models import abstract_params
+from ..serve.serve_step import make_prefill_step, make_serve_step
+from ..sharding import batch_specs, cache_specs, distribute_tree, make_param_specs, sharded_region
+from ..train import AdamWConfig, adamw_init, make_train_step, place_train_state
+from .mesh import PRODUCTION_MESHES, fake_process_group, make_mesh, mesh_chips
+from .roofline import (
+    Roofline,
+    StepCounter,
+    analytic_bytes_for,
+    cost_analysis_of,
+    local_bytes,
+    memory_analysis_of,
+    model_flops_for,
+)
+
+
+@contextlib.contextmanager
+def meta_equal() -> Iterator[None]:
+    """``torch.equal`` on ``meta`` tensors answers True while active. It has
+    no meta kernel, and DTensor's vocab-sharded embedding checks its mask
+    with it in backward; on ``meta`` there is no data to differ."""
+    lib = torch.library.Library("aten", "IMPL")
+    lib.impl("equal", lambda a, b: True, "Meta")
+    try:
+        yield
+    finally:
+        lib._destroy()
+
+
+def build_cell(arch: str, shape_name: str, mesh, opt_overrides: Optional[Dict] = None):
+    """Returns (cfg, step, args) for one cell: ``step(*args)`` runs it over
+    DTensors on ``mesh`` whose shards are ``meta`` tensors."""
+    cfg = get_config(arch)
+    if opt_overrides:
+        cfg = dataclasses.replace(cfg, **opt_overrides)
+    spec = input_specs(cfg, shape_name)
+    params = abstract_params(cfg)
+    batch = distribute_tree(spec["batch"], batch_specs(cfg, spec["batch"], mesh), mesh)
+
+    if spec["step"] == "train":
+        params, opt_state = place_train_state(cfg, params, adamw_init(params), mesh)
+        return cfg, make_train_step(cfg, AdamWConfig()), (params, opt_state, batch)
+    params = distribute_tree(params, make_param_specs(cfg, params, mesh), mesh)
+    if spec["step"] == "prefill":
+        return cfg, make_prefill_step(cfg), (params, batch)
+    caches = distribute_tree(spec["caches"], cache_specs(cfg, spec["caches"], mesh), mesh)
+    return cfg, make_serve_step(cfg), (params, caches, batch)
+
+
+def count_step(step, args) -> StepCounter:
+    """Run ``step(*args)`` once under a :class:`StepCounter`."""
+    with meta_equal(), sharded_region(True), StepCounter() as counter:
+        step(*args)
+    return counter
+
+
+def run_cell(
+    arch: str, shape_name: str, multi_pod: bool, opt_overrides: Optional[Dict] = None
+) -> Dict:
+    mesh_name = "2x16x16" if multi_pod else "16x16"
+    cfg = get_config(arch)
+    ok, why = shape_applicable(cfg, shape_name)
+    if not ok:
+        return {
+            "arch": arch, "shape": shape_name, "mesh": mesh_name,
+            "status": "skipped", "reason": why,
+        }
+    t0 = time.time()
+    shape, names = PRODUCTION_MESHES[multi_pod]
+    try:
+        with fake_process_group(math.prod(shape)):
+            mesh = make_mesh(shape, names, device_type="cpu")
+            cfg2, step, args = build_cell(arch, shape_name, mesh, opt_overrides)
+            t_build = time.time() - t0
+            argument_bytes = local_bytes(args)
+            counter = count_step(step, args)
+            chips = mesh_chips(mesh)
+        ca = cost_analysis_of(counter)
+        coll = counter.collectives
+        r = Roofline(
+            arch=arch,
+            shape=shape_name,
+            mesh=mesh_name,
+            chips=chips,
+            hlo_flops=ca["flops"] * chips,
+            hlo_bytes=ca["bytes accessed"] * chips,
+            collective_bytes=coll.total_bytes * chips,
+            collectives={k: v * chips for k, v in coll.bytes_by_kind.items()},
+            collective_counts=dict(coll.count_by_kind),
+            model_flops=model_flops_for(cfg2, shape_name),
+            bytes_per_device=float(argument_bytes),
+        )
+        row = r.row()
+        row.update(
+            {
+                "status": "ok",
+                "build_s": t_build,
+                "compile_s": time.time() - t0,  # the step's run stands in for the compile
+                "total_s": time.time() - t0,
+                "memory_analysis": memory_analysis_of(argument_bytes),
+                "ops": int(ca["ops"]),
+                "analytic_bytes": analytic_bytes_for(cfg2, shape_name),
+            }
+        )
+        return row
+    except Exception as e:  # a cell that fails is a row of the artifact, not the end of the sweep
+        return {
+            "arch": arch, "shape": shape_name, "mesh": mesh_name,
+            "status": "error", "error": f"{type(e).__name__}: {e}",
+            "traceback": traceback.format_exc()[-2000:],
+            "compile_s": time.time() - t0,
+        }
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--single-pod-only", action="store_true")
+    ap.add_argument("--multi-pod-only", action="store_true")
+    ap.add_argument("--out", default="artifacts/dryrun_torch.json")
+    ap.add_argument("--append", action="store_true")
+    args = ap.parse_args(argv)
+
+    archs = [args.arch] if args.arch else ARCH_IDS
+    shapes = [args.shape] if args.shape else SHAPE_NAMES
+    meshes = [False, True]
+    if args.single_pod_only:
+        meshes = [False]
+    if args.multi_pod_only:
+        meshes = [True]
+
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    rows = []
+    if args.append and os.path.exists(args.out):
+        with open(args.out) as f:
+            rows = json.load(f)
+
+    for arch in archs:
+        for shape in shapes:
+            for mp in meshes:
+                key = (arch, shape, "2x16x16" if mp else "16x16")
+                if any((r["arch"], r["shape"], r["mesh"]) == key for r in rows):
+                    continue
+                row = run_cell(arch, shape, mp)
+                rows.append(row)
+                status = row["status"]
+                extra = ""
+                if status == "ok":
+                    extra = (
+                        f"run={row['compile_s']:.1f}s flops={row['hlo_flops']:.3g} "
+                        f"coll={row['collective_bytes']:.3g}B bottleneck={row['bottleneck']}"
+                    )
+                elif status == "error":
+                    extra = row["error"][:160]
+                else:
+                    extra = row["reason"][:80]
+                print(f"[{status:>7}] {arch:<20} {shape:<12} {key[2]:<8} {extra}", flush=True)
+                with open(args.out, "w") as f:
+                    json.dump(rows, f, indent=1)
+
+    n_ok = sum(r["status"] == "ok" for r in rows)
+    n_err = sum(r["status"] == "error" for r in rows)
+    n_skip = sum(r["status"] == "skipped" for r in rows)
+    print(f"\ndone: {n_ok} ok, {n_skip} skipped (documented), {n_err} errors")
+    if n_err:
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -22,6 +22,11 @@ Scores are masked and normalised exactly as the reference writes them:
 ``_sdpa`` masks with ``NEG = -1e9`` in f32, ``_sdpa_chunked`` with ``-inf``
 behind its safe-max guard; neither goes through
 ``scaled_dot_product_attention``.
+
+On a mesh the tensors are DTensors: the einsums and the GQA reshape go
+through ``repro_torch.sharding``'s ``einsum`` / ``reshape``, which gather
+what DTensor cannot carry through a view, and ``attn_sp`` constrains the
+queries; on plain tensors they are ``torch.einsum`` and ``Tensor.reshape``.
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..sharding.placement import einsum, reshape, with_sharding_constraint
+from ..sharding.rules import P, data_axes
 from .layers import dense_init, index_scalar, rope
 
 __all__ = ["attn_init", "attn_apply", "attn_init_cache", "attn_decode"]
@@ -89,12 +96,12 @@ def _sdpa(q, k, v, mask) -> torch.Tensor:
     b, s, h, dh = q.shape
     hkv = k.shape[2]
     rep = h // hkv
-    qg = q.reshape(b, s, hkv, rep, dh)
-    scores = torch.einsum("bshrd,bthd->bhrst", qg, k).float()
+    qg = reshape(q, b, s, hkv, rep, dh)
+    scores = einsum("bshrd,bthd->bhrst", qg, k).float()
     scores = scores / math.sqrt(dh)
     scores = torch.where(mask, scores, NEG)
     p = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bhrst,bthd->bshrd", p, v)
+    out = einsum("bhrst,bthd->bshrd", p, v)
     return out.reshape(b, s, h, v.shape[-1])
 
 
@@ -129,8 +136,8 @@ def _sdpa_chunked(cfg, q, kv_fn: Callable, n_t: int) -> torch.Tensor:
         k_c, v_c = kv_fn(t0, c)  # (B,c,Hkv,dh), (B,c,Hkv,dv)
         hkv = k_c.shape[2]
         rep = h // hkv
-        qg = q.reshape(b, s, hkv, rep, dh)
-        sc = torch.einsum("bshrd,bthd->bhrst", qg, k_c).float()
+        qg = reshape(q, b, s, hkv, rep, dh)
+        sc = einsum("bshrd,bthd->bhrst", qg, k_c).float()
         sc = sc.reshape(b, h, s, c) / math.sqrt(dh)
         msk = _mask_chunk(cfg, s, t0, c, q.device)
         sc = torch.where(msk, sc, -math.inf)
@@ -141,7 +148,7 @@ def _sdpa_chunked(cfg, q, kv_fn: Callable, n_t: int) -> torch.Tensor:
         alpha = torch.exp(m - m_safe)
         p = torch.exp(sc - m_safe[..., None])
         l = l * alpha + p.sum(dim=-1)
-        pv = torch.einsum(
+        pv = einsum(
             "bhrst,bthd->bshrd", p.reshape(b, hkv, rep, s, c).to(q.dtype), v_c
         ).reshape(b, s, h, v_c.shape[-1])
         if acc is None:
@@ -156,6 +163,17 @@ def _sdpa_chunked(cfg, q, kv_fn: Callable, n_t: int) -> torch.Tensor:
 # forward (train / prefill)
 # -----------------------------------------------------------------------------
 
+def _sp_constrain(cfg, q: torch.Tensor) -> torch.Tensor:
+    """Sequence-parallel attention: shard query rows over "model". Rescues
+    archs whose head count doesn't divide the model axis (phi3 40H,
+    minicpm3 40H, musicgen 24H on a 16-way axis), where the (B,H,S,S) score
+    temporaries are otherwise replicated on every device (§Perf). Only a
+    DTensor on a mesh is constrained."""
+    if not cfg.attn_sp:
+        return q
+    return with_sharding_constraint(q, lambda mesh: P(data_axes(mesh), "model", None, None))
+
+
 def attn_apply(
     params: Dict,
     cfg,
@@ -167,16 +185,17 @@ def attn_apply(
     s = x.shape[1]
     if cfg.attention_type == "mla":
         return _mla_apply(params, cfg, x, positions, return_cache)
-    q = torch.einsum("bsd,dhk->bshk", x, params["w_q"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, params["w_k"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, params["w_v"].to(dt))
+    q = einsum("bsd,dhk->bshk", x, params["w_q"].to(dt))
+    k = einsum("bsd,dhk->bshk", x, params["w_k"].to(dt))
+    v = einsum("bsd,dhk->bshk", x, params["w_v"].to(dt))
     q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    q = _sp_constrain(cfg, q)
     if cfg.attn_impl == "chunked":
         out = _sdpa_chunked(cfg, q, lambda t0, c: (k[:, t0 : t0 + c], v[:, t0 : t0 + c]), s)
     else:
         out = _sdpa(q, k, v, _mask(cfg, s, s, x.device))
-    y = torch.einsum("bshk,hkd->bsd", out, params["w_o"].to(dt))
+    y = einsum("bshk,hkd->bsd", out, params["w_o"].to(dt))
     cache = _cache_from_prefill(cfg, k, v, s) if return_cache else None
     return y, cache
 
@@ -187,30 +206,30 @@ def _mla_apply(params, cfg, x, positions, return_cache):
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     h = cfg.n_heads
     cq = x @ params["w_dq"].to(dt)  # (B,S,rq)
-    q = torch.einsum("bsr,rhk->bshk", cq, params["w_uq"].to(dt))
+    q = einsum("bsr,rhk->bshk", cq, params["w_uq"].to(dt))
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
     ckv = x @ params["w_dkv"].to(dt)  # (B,S,rkv) — the latent
     kr = (x @ params["w_kr"].to(dt))[:, :, None, :]  # (B,S,1,dr) shared key
     kr = rope(kr, positions, cfg.rope_theta)
-    qc = torch.cat([q_nope, q_rope], dim=-1)
+    qc = _sp_constrain(cfg, torch.cat([q_nope, q_rope], dim=-1))
     if cfg.attn_impl == "chunked":
         # per-head K/V from the latent chunk on the fly: the full
         # (B,S,H,dn+dr) K is never materialized
         def kv_chunk(t0, c):
             ckv_c = ckv[:, t0 : t0 + c]
-            k_nope_c = torch.einsum("bsr,rhk->bshk", ckv_c, params["w_uk"].to(dt))
-            v_c = torch.einsum("bsr,rhk->bshk", ckv_c, params["w_uv"].to(dt))
+            k_nope_c = einsum("bsr,rhk->bshk", ckv_c, params["w_uk"].to(dt))
+            v_c = einsum("bsr,rhk->bshk", ckv_c, params["w_uv"].to(dt))
             kr_c = kr[:, t0 : t0 + c].expand(b, c, h, dr)
             return torch.cat([k_nope_c, kr_c], dim=-1), v_c
 
         out = _sdpa_chunked(cfg, qc, kv_chunk, s)
     else:
-        k_nope = torch.einsum("bsr,rhk->bshk", ckv, params["w_uk"].to(dt))
-        v = torch.einsum("bsr,rhk->bshk", ckv, params["w_uv"].to(dt))
+        k_nope = einsum("bsr,rhk->bshk", ckv, params["w_uk"].to(dt))
+        v = einsum("bsr,rhk->bshk", ckv, params["w_uv"].to(dt))
         k = torch.cat([k_nope, kr.expand(b, s, h, dr)], dim=-1)
         out = _sdpa(qc, k, v, _mask(cfg, s, s, x.device))
-    y = torch.einsum("bshk,hkd->bsd", out, params["w_o"].to(dt))
+    y = einsum("bshk,hkd->bsd", out, params["w_o"].to(dt))
     cache = None
     if return_cache:
         cache = {"ckv": ckv, "kr": kr[:, :, 0, :], "idx": index_scalar(s, x.device)}
@@ -281,9 +300,9 @@ def attn_decode(params: Dict, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.
     pos = idx.reshape(1, 1).expand(b, 1)
     if cfg.attention_type == "mla":
         return _mla_decode(params, cfg, x, cache, pos)
-    q = torch.einsum("bsd,dhk->bshk", x, params["w_q"].to(dt))
-    k_new = torch.einsum("bsd,dhk->bshk", x, params["w_k"].to(dt))
-    v_new = torch.einsum("bsd,dhk->bshk", x, params["w_v"].to(dt))
+    q = einsum("bsd,dhk->bshk", x, params["w_q"].to(dt))
+    k_new = einsum("bsd,dhk->bshk", x, params["w_k"].to(dt))
+    v_new = einsum("bsd,dhk->bshk", x, params["w_v"].to(dt))
     q = rope(q, pos, cfg.rope_theta, cfg.rope_fraction)
     k_new = rope(k_new, pos, cfg.rope_theta, cfg.rope_fraction)
 
@@ -316,7 +335,7 @@ def attn_decode(params: Dict, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.
         out = _sdpa_decode_bf16(q, k, v, mask)
     else:
         out = _sdpa(q, k, v, mask)
-    y = torch.einsum("bshk,hkd->bsd", out, params["w_o"].to(dt))
+    y = einsum("bshk,hkd->bsd", out, params["w_o"].to(dt))
     return y, new_cache
 
 
@@ -327,15 +346,15 @@ def _sdpa_decode_bf16(q, k, v, mask):
     b, s, h, dh = q.shape
     hkv = k.shape[2]
     rep = h // hkv
-    qg = q.reshape(b, s, hkv, rep, dh)
-    scores = torch.einsum("bshrd,bthd->bhrst", qg, k).float() / math.sqrt(dh)
+    qg = reshape(q, b, s, hkv, rep, dh)
+    scores = einsum("bshrd,bthd->bhrst", qg, k).float() / math.sqrt(dh)
     addmask = torch.where(mask, 0.0, NEG).to(scores.dtype)
     scores = scores + addmask
     m = torch.amax(scores, dim=-1, keepdim=True)
     ex = torch.exp((scores - m).float()).to(scores.dtype)
     den = torch.sum(ex.float(), dim=-1, keepdim=True)
     p = (ex / den.to(ex.dtype)).to(q.dtype)
-    out = torch.einsum("bhrst,bthd->bshrd", p, v)
+    out = einsum("bhrst,bthd->bshrd", p, v)
     return out.reshape(b, s, h, v.shape[-1])
 
 
@@ -344,7 +363,7 @@ def _mla_decode(params, cfg, x, cache, pos):
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     idx = cache["idx"]
     cq = x @ params["w_dq"].to(dt)
-    q = torch.einsum("bsr,rhk->bshk", cq, params["w_uq"].to(dt))
+    q = einsum("bsr,rhk->bshk", cq, params["w_uq"].to(dt))
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = rope(q_rope, pos, cfg.rope_theta)
 
@@ -358,14 +377,14 @@ def _mla_decode(params, cfg, x, cache, pos):
 
     # absorb the up-projections into the query side (the MLA decode trick):
     # score = q_nope . (ckv W_uk) + q_rope . kr  ==  (q_nope W_uk^T) . ckv + ...
-    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["w_uk"].to(dt))
-    s_lat = torch.einsum("bshr,btr->bhst", q_lat, ckv)
-    s_rope = torch.einsum("bshk,btk->bhst", q_rope, kr)
+    q_lat = einsum("bshk,rhk->bshr", q_nope, params["w_uk"].to(dt))
+    s_lat = einsum("bshr,btr->bhst", q_lat, ckv)
+    s_rope = einsum("bshk,btk->bhst", q_rope, kr)
     scores = (s_lat + s_rope).float() / math.sqrt(dn + dr)
     valid = torch.arange(ckv.shape[1], device=x.device) < (idx + 1)
     scores = torch.where(valid, scores, NEG)
     p = torch.softmax(scores, dim=-1).to(dt)
-    ctx = torch.einsum("bhst,btr->bshr", p, ckv)  # context in latent space
-    out = torch.einsum("bshr,rhk->bshk", ctx, params["w_uv"].to(dt))
-    y = torch.einsum("bshk,hkd->bsd", out, params["w_o"].to(dt))
+    ctx = einsum("bhst,btr->bshr", p, ckv)  # context in latent space
+    out = einsum("bshr,rhk->bshk", ctx, params["w_uv"].to(dt))
+    y = einsum("bshk,hkd->bsd", out, params["w_o"].to(dt))
     return y, {"ckv": ckv, "kr": kr, "idx": idx + 1}

@@ -10,14 +10,14 @@ configuration the CPU tests use.
 
 ``remat`` is live: with grad mode on, ``forward`` recomputes each layer
 group in backward (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint`` of the group body). Knobs that only mean something to
-the reference's XLA compile are kept so the configs compare equal, and are
-no-ops on one card:
-
-* ``scan_layers``: the port always walks the layer groups in a Python loop
-  (the reference's ``scan_layers=False`` path);
-* ``constrain_acts``, ``attn_sp``, ``zero1``, ``mla_shard``: sharding
-  constraints wait for the sharding slice.
+``jax.checkpoint`` of the group body). The sharding knobs are live on a
+mesh: ``mla_shard`` picks ``repro_torch.sharding``'s MLA rules, ``zero1``
+shards the AdamW moments over "data" (``repro_torch.train``), and
+``constrain_acts`` / ``attn_sp`` redistribute the residual stream / the
+attention queries when they are DTensors; on plain tensors they change
+nothing. ``scan_layers`` is kept so the configs compare equal and is a
+no-op: the port always walks the layer groups in a Python loop (the
+reference's ``scan_layers=False`` path).
 """
 from __future__ import annotations
 
@@ -78,15 +78,15 @@ class ArchConfig:
     remat: bool = True  # activation checkpointing of each layer group
     scan_layers: bool = True  # no-op here: the groups are walked in a loop
     ce_impl: str = "gather"  # gather | einsum (one-hot contraction CE)
-    zero1: bool = True  # no-op here: waits for the sharding slice
+    zero1: bool = True  # AdamW moments also sharded over "data" on a mesh
     moe_impl: str = "einsum"  # einsum | gather (dispatch implementation)
-    mla_shard: str = "feature"  # no-op here: waits for the sharding slice
-    constrain_acts: bool = False  # no-op here: waits for the sharding slice
+    mla_shard: str = "feature"  # feature | rank (MLA up-projection sharding)
+    constrain_acts: bool = False  # pin the residual stream to (dp, None, None)
     decode_score_dtype: str = "f32"  # f32 | bf16 decode attention scores
     kv_quant: bool = False  # int8 KV cache (per-position/head scales)
     attn_impl: str = "dense"  # dense | chunked (online-softmax over KV chunks)
     attn_chunk: int = 2048  # KV chunk for attn_impl="chunked"
-    attn_sp: bool = False  # no-op here: waits for the sharding slice
+    attn_sp: bool = False  # attention queries' sequence axis on "model"
     # whether the arch supports the long_500k shape (sub-quadratic decode)
     subquadratic: bool = False
 

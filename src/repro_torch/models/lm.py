@@ -14,6 +14,10 @@ checkpointing when ``cfg.remat``. :class:`TransformerLM` registers
 the same tree in an ``nn.Module``; the functional entry points stay the
 reference's.
 
+On a mesh (DTensor parameters and batches) the same code runs sharded:
+the vocab-sharded embedding's partial sum is reduced where it is made, and
+``constrain_acts`` pins the residual stream to the batch layout.
+
 Modality frontends (paligemma's SigLIP, musicgen's EnCodec) are stubs, as in
 the reference: ``batch["embeds"]`` carries precomputed patch/frame
 embeddings.
@@ -28,6 +32,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import resolve_device
+from ..sharding.placement import einsum, reduce_partial, with_sharding_constraint
+from ..sharding.rules import P, data_axes
 from . import attention as attn
 from . import recurrent as rec
 from .layers import apply_mlp, apply_norm, dense_init, mlp_init, norm_init
@@ -195,7 +201,18 @@ class TransformerLM(_Tree):
 # forward
 # =============================================================================
 
+def _constrain(cfg, x):
+    """Optional residual-stream sharding constraint: batch over DP axes,
+    features replicated — pins the residual stream so attention-internal
+    shardings don't leak into it (a §Perf lever). Only a DTensor on a mesh
+    is constrained."""
+    if not cfg.constrain_acts:
+        return x
+    return with_sharding_constraint(x, lambda mesh: P(data_axes(mesh), None, None))
+
+
 def _apply_block(cfg, p, kind, x, positions, return_cache=False):
+    x = _constrain(cfg, x)
     h = apply_norm(p["norm1"], x, cfg.norm_type)
     if kind == "A":
         mixed, cache = attn.attn_apply(p["mixer"], cfg, h, positions, return_cache)
@@ -223,7 +240,7 @@ def _embed_inputs(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     if batch.get("embeds") is not None:
         parts.append(batch["embeds"].to(dt))
     if batch.get("tokens") is not None:
-        parts.append(F.embedding(batch["tokens"].long(), params["embed"]).to(dt))
+        parts.append(reduce_partial(F.embedding(batch["tokens"].long(), params["embed"])).to(dt))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
@@ -282,7 +299,7 @@ def loss_fn(cfg, params, batch) -> Tuple[torch.Tensor, Dict]:
         # contract the vocab axis with a one-hot (logsumexp partial reductions)
         lse = torch.logsumexp(logits, dim=-1)
         onehot = F.one_hot(safe, logits.shape[-1]).to(logits.dtype)
-        target = torch.einsum("bsv,bsv->bs", logits, onehot)
+        target = einsum("bsv,bsv->bs", logits, onehot)
         nll = lse - target
     else:
         logp = torch.log_softmax(logits, dim=-1)

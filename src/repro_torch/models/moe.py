@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.noise import BetaNoise, TruncatedLaplace
+from ..sharding.placement import einsum
 from .layers import apply_mlp, dense_init, mlp_init
 
 __all__ = ["moe_init", "moe_apply", "resolve_capacity"]
@@ -102,10 +103,10 @@ def _route(params, cfg, xt):
 
 def _expert_ffn(params, cfg, ein):
     dt = ein.dtype
-    g = torch.einsum("ecd,edf->ecf", ein, params["w_gate"].to(dt))
-    u = torch.einsum("ecd,edf->ecf", ein, params["w_up"].to(dt))
+    g = einsum("ecd,edf->ecf", ein, params["w_gate"].to(dt))
+    u = einsum("ecd,edf->ecf", ein, params["w_up"].to(dt))
     h = F.silu(g.float()).to(dt) * u
-    return torch.einsum("ecf,efd->ecd", h, params["w_down"].to(dt))
+    return einsum("ecf,efd->ecd", h, params["w_down"].to(dt))
 
 
 def moe_apply(params: Dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -134,9 +135,9 @@ def moe_apply(params: Dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.T
             d_r = oh_e[:, :, None] * oh_c[:, None, :]
             dispatch = dispatch + d_r
             combine = combine + d_r.float() * gate_vals[:, rank][:, None, None]
-        ein = torch.einsum("tec,td->ecd", dispatch, xt)
+        ein = einsum("tec,td->ecd", dispatch, xt)
         eo = _expert_ffn(params, cfg, ein)
-        y = torch.einsum("ecd,tec->td", eo, combine.to(dt)).reshape(b, s, d)
+        y = einsum("ecd,tec->td", eo, combine.to(dt)).reshape(b, s, d)
     else:  # gather
         slot = gate_idx * cap + torch.clamp(pos_tk, max=cap - 1)  # (T, k)
         keep = pos_tk < cap

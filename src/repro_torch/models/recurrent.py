@@ -21,6 +21,8 @@ from typing import Callable, Dict, List
 import torch
 import torch.nn.functional as F
 
+from ..sharding.placement import einsum, with_sharding_constraint
+from ..sharding.rules import P, data_axes
 from .layers import dense_init, index_scalar, uniform_init
 
 __all__ = [
@@ -182,9 +184,9 @@ def _mlstm_qkv(params, x):
     d = x.shape[-1]
     up = x @ params["w_up"].to(dt)
     u, gate = up[..., :d], up[..., d:]
-    q = torch.einsum("bsd,dhk->bshk", u, params["w_q"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", u, params["w_k"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", u, params["w_v"].to(dt))
+    q = einsum("bsd,dhk->bshk", u, params["w_q"].to(dt))
+    k = einsum("bsd,dhk->bshk", u, params["w_k"].to(dt))
+    v = einsum("bsd,dhk->bshk", u, params["w_v"].to(dt))
     return u, gate, q, k, v
 
 
@@ -205,9 +207,9 @@ def mlstm_apply(params, cfg, x, positions, return_cache=False):
     dmat = torch.where(causal[None, :, :, None], dmat, -math.inf)
     m = torch.amax(dmat, dim=2, keepdim=True)  # (B,S,1,H)
     w = torch.exp(dmat - m)  # (B,S,S,H)
-    scores = torch.einsum("bshk,bthk->bsth", q, k).float() / math.sqrt(dh)
+    scores = einsum("bshk,bthk->bsth", q, k).float() / math.sqrt(dh)
     ww = w * scores
-    num = torch.einsum("bsth,bthk->bshk", ww.to(dt), v)
+    num = einsum("bsth,bthk->bshk", ww.to(dt), v)
     den = torch.abs(torch.sum(ww, dim=2))  # (B,S,H)
     den = torch.maximum(den, torch.exp(-m[:, :, 0, :]))
     out = num / den[..., None].to(dt)
@@ -228,8 +230,8 @@ def _mlstm_state_from_seq(k, v, log_i, log_f):
     logw = ftot[:, None] - cf + log_i  # (B,S,H)
     m = torch.clamp(torch.amax(logw, dim=1), min=0.0)  # (B,H); 0 guards the n floor
     w = torch.exp(logw - m[:, None]).to(k.dtype)
-    c = torch.einsum("bsh,bshk,bshl->bhkl", w, k, v)
-    n = torch.einsum("bsh,bshk->bhk", w, k)
+    c = einsum("bsh,bshk,bshl->bhkl", w, k, v)
+    n = einsum("bsh,bshk->bhk", w, k)
     return {"c": c, "n": n, "m": m, "idx": index_scalar(s, k.device)}
 
 
@@ -255,11 +257,11 @@ def mlstm_decode(params, cfg, x, cache):
     m_new = torch.maximum(log_f + cache["m"], log_i)
     fs = torch.exp(log_f + cache["m"] - m_new).to(dt)  # (B,H)
     is_ = torch.exp(log_i - m_new).to(dt)
-    c = cache["c"] * fs[..., None, None] + is_[..., None, None] * torch.einsum("bhk,bhl->bhkl", k, v)
+    c = cache["c"] * fs[..., None, None] + is_[..., None, None] * einsum("bhk,bhl->bhkl", k, v)
     n = cache["n"] * fs[..., None] + is_[..., None] * k
     # no 1/sqrt(dh) here, unlike mlstm_apply: the reference's finding (b)
-    num = torch.einsum("bhkl,bhk->bhl", c, q)
-    den = torch.abs(torch.einsum("bhk,bhk->bh", n, q))
+    num = einsum("bhkl,bhk->bhl", c, q)
+    den = torch.abs(einsum("bhk,bhk->bh", n, q))
     den = torch.maximum(den, torch.exp(-m_new).to(dt))
     out = (num / den[..., None]).reshape(b, 1, d)
     y = (out * F.silu(gate.float()).to(dt)) @ params["w_down"].to(dt)
@@ -289,7 +291,7 @@ def _slstm_step(params, carry, xt):
     wz, wi, wf, wo = xt
     # a bf16 state times f32 recurrent weights: JAX promotes to f32
     hp = hprev.float()
-    rz, ri, rf, ro = (torch.einsum("bhk,hkl->bhl", hp, params[f"r_{g}"]) for g in _GATES)
+    rz, ri, rf, ro = (einsum("bhk,hkl->bhl", hp, params[f"r_{g}"]) for g in _GATES)
     z = torch.tanh(wz.float() + rz)
     log_i = wi.float() + ri
     log_f = F.logsigmoid(wf.float() + rf)
@@ -308,7 +310,11 @@ def slstm_apply(params, cfg, x, positions, return_cache=False):
     b, s, d = x.shape
     h = cfg.n_heads
     dh = d // h
-    gates = [torch.einsum("bsd,dhk->sbhk", x, params[f"w_{g}"].to(dt)) for g in _GATES]
+    # on a mesh: the batch layout in, and the time axis moved out front
+    # after the product (a product that writes it first leaves a gradient
+    # whose flattened (s, b) axis DTensor cannot view back)
+    x = with_sharding_constraint(x, lambda mesh: P(data_axes(mesh), None, None))
+    gates = [einsum("bsd,dhk->bshk", x, params[f"w_{g}"].to(dt)).transpose(0, 1) for g in _GATES]
     f32 = torch.float32
     carry = (
         torch.zeros((b, h, dh), dtype=f32, device=x.device),
@@ -344,7 +350,7 @@ def slstm_init_cache(cfg, batch, max_len, dtype, device=None):
 def slstm_decode(params, cfg, x, cache):
     dt = x.dtype
     b, _, d = x.shape
-    gates = tuple(torch.einsum("bsd,dhk->bhk", x, params[f"w_{g}"].to(dt)) for g in _GATES)
+    gates = tuple(einsum("bsd,dhk->bhk", x, params[f"w_{g}"].to(dt)) for g in _GATES)
     carry = (cache["c"], cache["n"], cache["h"], cache["m"])
     (c, n, hl, m), hnew = _slstm_step(params, carry, gates)
     y = hnew.to(dt).reshape(b, 1, d) @ params["w_out"].to(dt)

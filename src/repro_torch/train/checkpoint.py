@@ -12,8 +12,10 @@ checkpoints.
 * **layout**: ``step_{:08d}/arrays.npz`` holds the leaves keyed ``"0"`` ..
   ``"n-1"`` in JAX's flatten order of the state without its ``meta`` (dict
   keys sorted), and ``manifest.json`` the step, a description of the tree,
-  the leaf count and ``meta``. Arrays are stored whole; :meth:`restore`
-  puts them on the template's devices (or on ``device``), dtypes kept.
+  the leaf count and ``meta``. Arrays are stored whole (a DTensor leaf is
+  gathered first); :meth:`restore` puts them on the template's devices (or
+  on ``device``), dtypes kept, or, given ``shardings``, lays each out on
+  the current mesh (elastic restore).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 from ..config import resolve_device
 from ..interop import _tensor_from_numpy, _tensor_to_numpy
 from ..models.lm import tree_items, tree_unflatten
+from ..sharding import replicated
 
 __all__ = ["Checkpointer", "tree_description"]
 
@@ -47,9 +50,10 @@ def tree_description(tree) -> str:
 
 def _host_leaves(tree: Dict) -> List[np.ndarray]:
     """The leaves in JAX's order as numpy arrays of their own (one copy, also
-    of a CPU tensor, so later writes to the tensor do not reach them)."""
-    return [_tensor_to_numpy(t.detach().to("cpu", copy=True)) if isinstance(t, torch.Tensor) else np.array(t)
-            for _, t in tree_items(tree)]
+    of a CPU tensor, so later writes to the tensor do not reach them); a
+    DTensor leaf is gathered whole, so every rank of its mesh must call."""
+    return [_tensor_to_numpy(replicated(t.detach()).to("cpu", copy=True)) if isinstance(t, torch.Tensor)
+            else np.array(t) for _, t in tree_items(tree)]
 
 
 def _step_dirs(directory: str) -> List[int]:
@@ -115,12 +119,18 @@ class Checkpointer:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # -- restore -------------------------------------------------------------
-    def restore(self, step: Optional[int], like: Dict, device=None) -> Tuple[int, Dict]:
+    def restore(self, step: Optional[int], like: Dict, device=None,
+                shardings: Optional[Dict] = None) -> Tuple[int, Dict]:
         """Restore into the structure of ``like`` (a template tree; ``step``
         None: the latest). Each array goes to ``device`` if given, else to
         its template leaf's device; a template leaf on ``meta`` (or not a
         tensor) means the default device, ``"cuda"``, which raises without a
-        card. Dtypes are the stored ones."""
+        card. Dtypes are the stored ones.
+
+        ``shardings``: a tree matching ``like`` (without ``meta``) of
+        ``repro_torch.sharding.NamedSharding`` on the *current* mesh; each
+        array becomes a DTensor laid out by it (elastic restore: the mesh
+        need not be the one that saved). Every rank of the mesh must call."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -134,6 +144,12 @@ class Checkpointer:
             raise ValueError(
                 f"checkpoint step {step} holds {manifest['n_leaves']} arrays, the template {len(template)}"
             )
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            layouts = [sh for _, sh in tree_items({k: v for k, v in shardings.items() if k != "meta"})]
+            if len(layouts) != len(template):
+                raise ValueError(f"{len(layouts)} shardings for {len(template)} arrays")
         forced = None if device is None else resolve_device(device)
         with np.load(os.path.join(d, "arrays.npz")) as data:
             loaded = []
@@ -141,6 +157,11 @@ class Checkpointer:
                 a = data[str(i)]
                 if isinstance(t, torch.Tensor) and tuple(a.shape) != tuple(t.shape):
                     raise ValueError(f"checkpoint step {step}: {path} is {a.shape}, the template {tuple(t.shape)}")
+                if shardings is not None:
+                    sh = layouts[i]
+                    loaded.append(distribute_tensor(_tensor_from_numpy(a, torch.device("cpu")), sh.mesh,
+                                                    sh.placements()))
+                    continue
                 on_template = isinstance(t, torch.Tensor) and t.device.type != "meta"
                 loaded.append(_tensor_from_numpy(a, forced or (t.device if on_template else resolve_device())))
         out = tree_unflatten(arrays, loaded)

@@ -54,6 +54,24 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_every_module_of_the_reference_has_its_port():
+    """The module diff of the two packages is empty: every module of
+    ``src/repro`` has a namesake in ``src/repro_torch``, but for the Pallas
+    kernels, whose kernel and reference modules are a CUDA source under
+    ``kernels/csrc`` and the plain versions in the kernel's ``ops.py``."""
+    ref = ROOT / "src" / "repro"
+    missing = []
+    for path in sorted(ref.rglob("*.py")):
+        rel = path.relative_to(ref)
+        if rel.parts[0] == "kernels" and len(rel.parts) == 3 and rel.stem in (rel.parts[1], "ref"):
+            kernel = PORT / "kernels" / rel.parts[1]
+            if not (kernel / "ops.py").exists() or not list((PORT / "kernels" / "csrc").glob("*.cu")):
+                missing.append(str(rel))
+        elif not (PORT / rel).exists():
+            missing.append(str(rel))
+    assert not missing, missing
+
+
 def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
     from repro_torch.config import resolve_device
     from repro_torch.core import threefry

@@ -138,18 +138,18 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
     ``serve``; plain PyTorch, no TPU kernel lies on it): the ten reduced
     architectures in f32 with TF32 off, ``forward``, ``prefill`` and eight
     decode steps on ``cuda`` equal to ``cpu`` (max |diff| 1e-4; 5e-3 for
-    recurrentgemma and xlstm); ``stablelm_1_6b`` at full width and depth
-    (1.64 B parameters, f32 masters, bf16 compute), eight seeded requests of
+    recurrentgemma and xlstm); ``stablelm_1_6b`` at full width cut to 4 of
+    its 24 layers (f32 masters, bf16 compute), eight seeded requests of
     40-500 tokens through ``BucketedBatcher((128, 256, 512), (1, 2, 4, 8))``
     drained lot by lot: the prefill step's next-token logits, the serve
-    step over ``init_caches(B, bucket + 32)`` fed the bucket's tokens (each
+    step over ``init_caches(B, bucket + 16)`` fed the bucket's tokens (each
     position's logits against ``forward``'s and the last against the
     prefill step, max |diff| 0.25 and mean 0.02: ``LM_BF16_MAX``,
-    ``LM_BF16_MEAN``), then 32 greedy tokens, with prefill tokens/s, serve
+    ``LM_BF16_MEAN``), then 16 greedy tokens, with prefill tokens/s, serve
     ms per step, peak memory and seconds; then every other architecture at
     full width cut to one group of its pattern (two layers; recurrentgemma
-    19, xlstm 8): ``forward`` at B = 2, S = 256 (paligemma: 256 patch
-    embeddings then 256 tokens; musicgen: frame embeddings), 8 serve steps
+    19, xlstm 8): ``forward`` at B = 2, S = 128 (paligemma: 256 patch
+    embeddings then 128 tokens; musicgen: frame embeddings), 4 serve steps
     from empty caches against ``forward`` (paligemma against its causal
     forward; mixtral with the ``full`` capacity; xlstm only finite, with
     the reference's mLSTM decode gap printed), mixtral under the four
@@ -167,7 +167,7 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
     ``TokenPipeline`` batches: the first step's forward and backward with
     remat off and on (equal loss, grad norms within 1e-3, each one's peak
     memory), a ``grad_accum=2`` step within 5e-2 of the large batch's loss,
-    then four AdamW steps (seconds, tokens/s and the model-FLOP share 6 N T
+    then three AdamW steps (seconds, tokens/s and the model-FLOP share 6 N T
     over the step time against 989 TFLOP/s bf16, loss and grad norm finite,
     the parameters moved, peak memory); then ``repro_torch.launch.train``'s
     failure drill in-process on ``cuda`` (an uninterrupted run, a run that
@@ -189,6 +189,30 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
     of phase 11's serve step at its largest lot's shape and of phase 12's
     train step, each bound beside the times those phases measured and the
     ratio; no MPC kernel launches during the phase.
+
+14. the serving configuration under ``jit_ops=True`` (the engine's
+    per-operator cache, each entry a captured CUDA graph): the reference's
+    serving demo (``examples/healthlnk_queries.py``: ``SELECT major_icd9,
+    COUNT(*) AS c FROM diagnoses GROUP BY major_icd9`` through
+    ``ReflexClient.in_process(..., noise=NoTrim(), placement="none",
+    jit_ops=True)``; a warm submit, eight tenants' serial submits, a warm
+    then a timed drain of eight) at n = 48 on ``cuda`` and ``cpu``
+    (identical results, shares included, and cache statistics), then at
+    n = 8,192 against the same sequence eager (identical shares, per-node
+    ledger and rows; every answer the oracle's; the drained slots equal the
+    serial submits; the statistics equal the CPU's): capture seconds, pool
+    bytes and launches of each graph, seconds per replayed submit against
+    eager, the drain against the serial submits, peak memory; a replay
+    under another engine's key gives that key's shares; each kernel
+    launched inside the graphs, at every argument shape the captures gave
+    it, captured alone and replayed against its plain version; then phase
+    3's sort-merge ``aspirin_count`` (Beta(2,6) parallel Resizers on every
+    internal operator) executed three times on one ``Engine(jit_ops=True)``
+    (cache misses and new graphs per execution: the nodes after a Resize
+    miss when S changes), the first against phase 3's eager run with the
+    same key (shares, ledger, S), every answer the oracle's. Its replays launch no wrapper, so the kernels
+    line's launches do not count them; each graph's recorded launches are
+    printed.
 
 The kernels line's launches sum phases 3, 6, 8, 9 and 10's sort&cut runs;
 the nested ``"u64"`` object of each kernel with a 64-bit build holds that
@@ -787,6 +811,11 @@ def cross_device_phase(dev) -> None:
 # 3. full-size run
 # ---------------------------------------------------------------------------
 
+# outputs of phase 3's runs that phase 14 holds its jit runs against: name ->
+# (share_rows, ledger_rows)
+EAGER_RUNS: dict = {}
+
+
 def full_phase(dev, n: int, three_join_n: int, big_n: int) -> dict:
     """The full-size runs, each with its launch counts set to 0 just before
     it and read just after, and the shape of each shuffle hop it gathers
@@ -946,6 +975,8 @@ def _full_runs(dev, runs: dict, data: dict, hops: list, phases: list, n: int) ->
         }
         if name in ("dosage_study", "dosage_study gates", "comorbidity", "comorbidity gates"):
             outputs[name] = (out, report)
+        if name == "aspirin_count sort-merge":  # phase 14's eager reference
+            EAGER_RUNS[name] = (share_rows(out), ledger_rows(report))
     return results, outputs, answers
 
 
@@ -1333,7 +1364,10 @@ def service_phase(dev, n: int) -> dict:
 
         # a batch of four tenants against the serial submits of a fresh service
         batch_sql = QUERY_SQL["comorbidity"]
-        batch_svc = _service(dev, tables, catalog, f"{tmp}/batch", "on")
+        # the batch window of the reference's batched-admission demo: the
+        # four enqueues form one bucket however long admission takes (at the
+        # default 0.05 s a slow host's deadline flush split them 3 + 1)
+        batch_svc = _service(dev, tables, catalog, f"{tmp}/batch", "on", batch_wait_s=60.0)
         serial_svc = _service(dev, tables, catalog, f"{tmp}/serial", "on")
         serial, serial_s = [], []
         for i in range(BATCH_SLOTS):
@@ -1343,8 +1377,11 @@ def service_phase(dev, n: int) -> dict:
         _sync(dev)
         reset_launch_counts()
         t0 = time.perf_counter()
+        admit_s = []  # each enqueue's admission, against the default 0.05 s window
         for i in range(BATCH_SLOTS):
+            t1 = time.perf_counter()
             batch_svc.enqueue(f"t{i}", batch_sql)
+            admit_s.append(time.perf_counter() - t1)
         slots = batch_svc.drain()
         _sync(dev)
         batch_s = time.perf_counter() - t0
@@ -1363,9 +1400,10 @@ def service_phase(dev, n: int) -> dict:
         print(f"  batch: {BATCH_SLOTS} tenants' comorbidity, one pass of {stats['stacked_nodes']} stacked and "
               f"{stats['split_nodes']} split nodes: enqueue and drain {batch_s:.3f} s, of which the idle refill "
               f"{refill_s:.3f} s, against {sum(serial_s):.3f} s for the serial submits "
-              f"({', '.join(f'{x:.3f}' for x in serial_s)}); every slot equals its serial submit")
+              f"({', '.join(f'{x:.3f}' for x in serial_s)}); every slot equals its serial submit; admission "
+              f"{', '.join(f'{x:.4f}' for x in admit_s)} s an enqueue")
         out["batch"] = {"stats": stats, "batch_s": batch_s, "refill_s": refill_s, "serial_s": serial_s,
-                        "launches": batch_launches}
+                        "admit_s": admit_s, "launches": batch_launches}
 
         # the budget: a refusing accountant, then a restart over the same
         # state; a Resizer on every internal operator, so the restarted
@@ -2315,14 +2353,28 @@ LM_REQUESTS = 8
 LM_PROMPT_LENGTHS = (40, 500)
 LM_LEN_BUCKETS = (128, 256, 512)
 LM_BATCH_BUCKETS = (1, 2, 4, 8)
-LM_NEW_TOKENS = 32
-LM_SEQ = 256  # forward at full width: B = 2, S = 256
-LM_STEPS = 8  # serve steps from empty caches against forward
+LM_NEW_TOKENS = 16
+LM_SEQ = 128  # forward at full width: B = 2, S = 128
+LM_STEPS = 4  # serve steps from empty caches against forward
 LM_SERVED = "stablelm_1_6b"
+# the served model's depth: full width, 4 of its 24 layers. At full depth
+# feeding the buckets' 896 positions one serve step at a time (about 43 ms a
+# step, host-bound) took 43 s of the script's time limit; phases 12 and 13
+# run the uncut model
+LM_SERVED_LAYERS = 4
 LM_EXCUSED = {
     "arctic_480b": "one layer at full width holds 53.6 GB of f32 expert weights plus 26.8 GB of per-call "
                    "bf16 casts, more than the card's 80 GB: it waits for the sharding slice",
 }
+
+
+def served_config():
+    """``LM_SERVED`` at full width, cut to ``LM_SERVED_LAYERS`` layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(LM_SERVED), n_layers=LM_SERVED_LAYERS)
 
 
 def _lm_batch(cfg, rng, b: int, s: int, dev) -> dict:
@@ -2442,20 +2494,20 @@ def _reset_peak(dev) -> None:
 
 def lm_serve_phase(dev, card: str, cfg=None, requests: int = LM_REQUESTS, lengths=LM_PROMPT_LENGTHS,
                    len_buckets=LM_LEN_BUCKETS, new_tokens: int = LM_NEW_TOKENS) -> dict:
-    """``stablelm_1_6b`` at full width and depth: seeded requests through
-    ``BucketedBatcher``, drained lot by lot. Per lot: the prefill step's
-    next-token logits; the serve step over ``init_caches(B, bucket + new)``
-    fed the bucket's tokens, each position's logits against ``forward``'s
-    and the last one against the prefill step; then greedy decoding."""
+    """``stablelm_1_6b`` at full width, cut in depth to ``LM_SERVED_LAYERS``
+    layers: seeded requests through ``BucketedBatcher``, drained lot by lot.
+    Per lot: the prefill step's next-token logits; the serve step over
+    ``init_caches(B, bucket + new)`` fed the bucket's tokens, each
+    position's logits against ``forward``'s and the last one against the
+    prefill step; then greedy decoding."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models import forward, init_caches, init_params
     from repro_torch.models.lm import tree_items
     from repro_torch.serve import BucketedBatcher, make_prefill_step, make_serve_step
 
-    cfg = cfg or get_config(LM_SERVED)
+    cfg = cfg or served_config()
     t_phase = time.perf_counter()
     _reset_peak(dev)
     gen = torch.Generator(device=dev).manual_seed(LM_SEED)
@@ -2725,7 +2777,7 @@ def lm_attention_variants(cfg, params, b: dict, steps: int, dev, card: str) -> d
 
 def lm_phase(dev, card: str) -> dict:
     """Phase 11: cross-device at the reduced configs, then stablelm served at
-    full width and depth, then the other architectures at full width."""
+    full width (cut in depth), then the other architectures at full width."""
     import torch
 
     t_phase = time.perf_counter()
@@ -2736,7 +2788,7 @@ def lm_phase(dev, card: str) -> dict:
         cross = lm_cross_device(dev)
     finally:
         torch.set_float32_matmul_precision(precision)
-    print(f"  {LM_SERVED} at full width and depth: {LM_REQUESTS} requests of {LM_PROMPT_LENGTHS[0]}-"
+    print(f"  {LM_SERVED} at full width, {LM_SERVED_LAYERS} of its layers: {LM_REQUESTS} requests of {LM_PROMPT_LENGTHS[0]}-"
           f"{LM_PROMPT_LENGTHS[1]} tokens, BucketedBatcher{LM_LEN_BUCKETS}x{LM_BATCH_BUCKETS}, "
           f"{LM_NEW_TOKENS} greedy tokens each")
     served = lm_serve_phase(dev, card)
@@ -2757,7 +2809,7 @@ def lm_phase(dev, card: str) -> dict:
 TRAIN_ARCH = "stablelm_1_6b"
 TRAIN_BATCH = 4
 TRAIN_SEQ = 512
-TRAIN_STEPS = 4
+TRAIN_STEPS = 3
 TRAIN_SEED = 21
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak
 BF16_FLOPS_PER_S = 989e12
@@ -3149,9 +3201,10 @@ def _counted(label: str, cfg, step, args, shape: str, measured_s: list, card: st
 
 def roofline_on_card(lm: dict, train: dict, card: str) -> dict:
     """The port's roofline of the two steps phases 11 and 12 timed, counted
-    on ``meta``: ``stablelm_1_6b``'s serve step at the largest lot's shape
-    (against that lot's greedy steps) and its 4 x 512 train step (against
-    phase 12's timed steps)."""
+    on ``meta``: the served ``stablelm_1_6b``'s serve step (phase 11's
+    depth) at the largest lot's shape (against that lot's greedy steps) and
+    the uncut model's 4 x 512 train step (against phase 12's timed
+    steps)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3159,14 +3212,16 @@ def roofline_on_card(lm: dict, train: dict, card: str) -> dict:
     from repro_torch.serve import make_serve_step
     from repro_torch.train import AdamWConfig, adamw_init, make_train_step
 
-    cfg = get_config(TRAIN_ARCH)
-    params = abstract_params(cfg)
+    served = served_config()
     lot = max(lm["served"]["lots"], key=lambda r: (r["batch"] * r["bucket"], r["bucket"]))
     b, cap = lot["batch"], lot["bucket"] + LM_NEW_TOKENS
-    caches = init_caches(cfg, b, cap, device="meta")
+    caches = init_caches(served, b, cap, device="meta")
     tok = {"tokens": torch.empty((b, 1), dtype=torch.int32, device="meta")}
-    out = {"serve": _counted(f"serve step B={b}, cache {cap}", cfg, make_serve_step(cfg), (params, caches, tok),
-                             "decode", [lot["decode_ms_per_step"] / 1e3], card)}
+    out = {"serve": _counted(f"serve step B={b}, cache {cap}, {served.n_layers} layers", served,
+                             make_serve_step(served), (abstract_params(served), caches, tok), "decode",
+                             [lot["decode_ms_per_step"] / 1e3], card)}
+    cfg = get_config(TRAIN_ARCH)
+    params = abstract_params(cfg)
     full = train["full"]
     tokens = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32, device="meta") for k in ("tokens", "labels")}
     out["train"] = _counted(f"train step {TRAIN_BATCH} x {TRAIN_SEQ}, remat on", cfg,
@@ -3213,6 +3268,450 @@ def shard_phase(dev, card: str, lm: dict, train: dict) -> dict:
     seconds = time.perf_counter() - t_phase
     print(f"  phase 13 in {seconds:.1f} s, no MPC kernel launched [{card}]")
     return {"cross_device": cross, "full": full, "roofline": roof, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# 14. the serving configuration under jit_ops=True: a cache of CUDA graphs
+# ---------------------------------------------------------------------------
+
+# examples/healthlnk_queries.py's batched-admission demo
+JIT_SQL = "SELECT major_icd9, COUNT(*) AS c FROM diagnoses GROUP BY major_icd9"
+JIT_TENANTS = 8
+# aspirin_count's executions on one jit engine, and how many of them an
+# eager engine with the same key and counters repeats
+JIT_EXECUTIONS = 3
+JIT_EAGER_CHECKS = 1
+# eager submits of (a) after its warm eager submit (each gives the same shares)
+JIT_EAGER_SUBMITS = 1
+JIT_CROSS_ROWS = 48
+# each kernel wrapper's launch function (module, attribute) and its plain
+# version: the graphs' launches are checked against it at the shapes the
+# captures gave it
+_LAUNCHERS = {
+    "rss_gate": ("repro_torch.kernels.rss_gate.ops", "_launch"),
+    "ks_prefix": ("repro_torch.kernels.ks_prefix.ops", "_ks_prefix_launch"),
+    "and_fold": ("repro_torch.kernels.ks_prefix.ops", "_and_fold_launch"),
+    "a2b_fused": ("repro_torch.kernels.a2b_fused.ops", "_a2b_launch"),
+    "bit2a_fused": ("repro_torch.kernels.a2b_fused.ops", "_bit2a_launch"),
+    "bitonic_swap": ("repro_torch.kernels.bitonic_stage.ops", "_launch"),
+    "shuffle_gather": ("repro_torch.kernels.shuffle_gather.ops", "_hop_launch"),
+}
+
+
+def _plain_of(name: str):
+    from repro_torch.kernels.a2b_fused import a2b_plain, bit2a_plain
+    from repro_torch.kernels.bitonic_stage import stage_swap_plain
+    from repro_torch.kernels.ks_prefix import and_fold_plain, ks_prefix_plain
+    from repro_torch.kernels.rss_gate import gate_plain
+    from repro_torch.kernels.shuffle_gather import shuffle_gather_plain
+
+    return {
+        "rss_gate": gate_plain, "ks_prefix": ks_prefix_plain, "and_fold": and_fold_plain, "a2b_fused": a2b_plain,
+        "bit2a_fused": bit2a_plain, "bitonic_swap": stage_swap_plain,
+        "shuffle_gather": lambda cols, index: [shuffle_gather_plain(c, index) for c in cols],
+    }[name]
+
+
+def _arg_spec(a):
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return ("t", tuple(a.shape), str(a.dtype).split(".")[-1])
+    if isinstance(a, (list, tuple)) and a and all(isinstance(x, torch.Tensor) for x in a):
+        return ("l", tuple(_arg_spec(x) for x in a))
+    return ("v", tuple(a) if isinstance(a, list) else a)
+
+
+class _LaunchShapes:
+    """While active, records each kernel launch function's argument shapes
+    (the physical tensors a capture hands it), keyed by kernel, and the
+    launches recorded into each graph the jit cache captures (``per_graph``,
+    keyed by the graph's id; a replay calls no launch function)."""
+
+    def __init__(self):
+        self.seen = {}
+        self.captured = {}  # kernel -> launches made while a stream captured
+        self.per_graph = {}
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+
+        from repro_torch.engine import executor
+
+        self._saved = []
+        for name, (mod, attr) in _LAUNCHERS.items():
+            module = importlib.import_module(mod)
+            fn = getattr(module, attr)
+            self._saved.append((module, attr, fn))
+
+            def recording(*args, _fn=fn, _name=name):
+                self.seen.setdefault(_name, set()).add(tuple(_arg_spec(a) for a in args))
+                if torch.cuda.is_current_stream_capturing():
+                    self.captured[_name] = self.captured.get(_name, 0) + 1
+                return _fn(*args)
+
+            setattr(module, attr, recording)
+        capture = executor._CompiledOp._capture
+        self._saved.append((executor._CompiledOp, "_capture", capture))
+
+        def counting(op, *args):
+            before = dict(self.captured)
+            graph = capture(op, *args)
+            self.per_graph[id(graph)] = {k: v - before.get(k, 0) for k, v in self.captured.items()
+                                         if v != before.get(k, 0)}
+            return graph
+
+        executor._CompiledOp._capture = counting
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+
+
+def _make_arg(spec, gen, dev, n_index):
+    import torch
+
+    kind, *rest = spec
+    if kind == "v":
+        return rest[0] if not isinstance(rest[0], tuple) else list(rest[0])
+    if kind == "l":
+        return [_make_arg(s, gen, dev, n_index) for s in rest[0]]
+    shape, dtype = rest
+    if dtype == "int64" and len(shape) == 1 and shape[0] == n_index:  # a hop's index: a permutation
+        return torch.randperm(shape[0], generator=gen, device=dev)
+    if dtype == "int64":
+        return words64(gen, shape, dev)
+    return torch.randint(-2**31, 2**31, shape, generator=gen, device=dev, dtype=torch.int32)
+
+
+def graph_kernel_checks(dev, seen: dict) -> dict:
+    """Each kernel at each argument shape the captures gave it: its launch
+    function captured in a CUDA graph, replayed, against its plain version
+    on the same inputs; then new inputs copied in and replayed again.
+    Returns kernel -> (shapes checked, max_abs_err)."""
+    import importlib
+
+    import torch
+
+    gen = device_generator(dev, 14)
+    out = {}
+    for name, specs in sorted(seen.items()):
+        mod, attr = _LAUNCHERS[name]
+        launch = getattr(importlib.import_module(mod), attr)
+        plain = _plain_of(name)
+        err = 0
+        for spec in sorted(specs, key=repr):
+            n_index = spec[-1][1][0] if name == "shuffle_gather" else -1
+            args = [_make_arg(s, gen, dev, n_index) for s in spec]
+            launch(*args)  # outside capture: builds, sets shared-memory limits
+            torch.cuda.synchronize(dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got = launch(*args)
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize(dev)
+                want = plain(*args)
+                pairs = zip(got, want) if isinstance(got, list) else [(got, want)]
+                err = max(err, *(max_abs_err64(g, w) if g.dtype == torch.int64 else max_abs_err(g, w)
+                                 for g, w in pairs))
+                fresh = [_make_arg(s, gen, dev, n_index) for s in spec]
+                for a, b in zip(args, fresh):  # refill the static inputs in place
+                    for x, y in (zip(a, b) if isinstance(a, list) else [(a, b)]):
+                        if isinstance(x, torch.Tensor):
+                            x.copy_(y)
+            del graph
+        out[name] = {"shapes": len(specs), "max_abs_err": err}
+        print(f"    {name}: {len(specs)} argument shapes, captured and replayed twice with new inputs, "
+              f"max_abs_err {err} against the plain version")
+        check(err == 0, f"{name} inside a CUDA graph differs from its plain version")
+    return out
+
+
+def _clear_jit(dev) -> None:
+    import gc
+
+    import torch
+
+    from repro_torch.engine import Engine
+
+    Engine._JIT_CACHE.clear()
+    Engine.reset_jit_stats()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _graphs() -> list:
+    """Every captured graph of the process-wide cache: (entry label, graph)."""
+    from repro_torch.engine import Engine
+
+    return [(e.label, g) for e in Engine._JIT_CACHE.values() for g in e.graphs.values()]
+
+
+def _graph_launches(graphs, shapes: _LaunchShapes) -> dict:
+    """The kernel launches recorded into ``graphs`` (captured while
+    ``shapes`` was active)."""
+    total: dict = {}
+    for _, g in graphs:
+        _add(total, shapes.per_graph[id(g)])
+    return total
+
+
+def group_oracle(plain: dict) -> list:
+    import numpy as np
+
+    keys, counts = np.unique(plain["diagnoses"]["major_icd9"], return_counts=True)
+    return sorted(zip(keys.tolist(), counts.tolist()))
+
+
+def _group_rows(res) -> list:
+    import numpy as np
+
+    return sorted(zip(np.asarray(res.rows["major_icd9"]).tolist(), np.asarray(res.rows["c"]).tolist()))
+
+
+def _timed(dev, fn):
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def serving_sequence(dev, tables, jit: bool = True, tenants: int = JIT_TENANTS, drains: bool = True) -> dict:
+    """The reference's serving demo (``examples/healthlnk_queries.py``):
+    ``ReflexClient.in_process(tables, noise=NoTrim(), placement="none",
+    jit_ops=jit)``, one warm submit, then ``tenants`` tenants' serial
+    submits; with ``drains``, a second client enqueues eight for a warm
+    drain, then for a timed drain. The jit cache is cleared first."""
+    from repro_torch.core import threefry
+    from repro_torch.core.noise import NoTrim
+    from repro_torch.engine import Engine
+    from repro_torch.runtime import ReflexClient
+
+    def client():
+        return ReflexClient.in_process(tables, noise=NoTrim(), placement="none", jit_ops=jit,
+                                       key=threefry.PRNGKey(5), batch_wait_s=60.0, device=dev)
+
+    _clear_jit(dev)
+    serial = client()
+    warm, warm_s = _timed(dev, lambda: serial.submit("warm", JIT_SQL))
+    captured = list(_graphs())
+    runs = [_timed(dev, lambda t=t: serial.submit(f"clinic_{t}", JIT_SQL)) for t in range(tenants)]
+    out = {"warm": warm, "warm_s": warm_s, "captured": captured, "serial": [r for r, _ in runs],
+           "serial_s": [s for _, s in runs], "drained": []}
+    if drains:
+        batch = client()
+
+        def drain():
+            for t in range(JIT_TENANTS):
+                batch.session(f"clinic_{t}").enqueue(JIT_SQL)
+            return batch.drain()
+
+        _, out["warm_drain_s"] = _timed(dev, drain)
+        out["drained"], out["drain_s"] = _timed(dev, drain)
+        out["batch_stats"] = dict(batch.service.engine.last_batch_stats)
+    out.update(stats=Engine.jit_cache_stats(), graphs=list(_graphs()))
+    return out
+
+
+def _stats_view(stats: dict) -> tuple:
+    return stats["hits"], stats["misses"], stats["size"]
+
+
+def jit_cross_device(dev) -> dict:
+    """The serving sequence at n=48 on the card and on the CPU: every result
+    identical, shares included, and the same cache statistics."""
+    import torch
+
+    from repro_torch.data import generate_healthlnk
+
+    seqs = {}
+    for d in (dev, torch.device("cpu")):
+        tables, _ = generate_healthlnk(n=JIT_CROSS_ROWS, seed=0, device=d)
+        seqs[d.type] = serving_sequence(d, tables)
+    a, b = seqs[dev.type], seqs["cpu"]
+    pairs = list(zip([a["warm"], *a["serial"], *a["drained"]], [b["warm"], *b["serial"], *b["drained"]]))
+    for x, y in pairs:
+        check(_same_result(x, y), "the jit serving sequence at n=48 differs between cuda and cpu")
+    check(_stats_view(a["stats"]) == _stats_view(b["stats"]), f"jit cache stats differ: {a['stats']} {b['stats']}")
+    if dev.type == "cuda":
+        check(bool(a["graphs"]), f"no graph was captured at n={JIT_CROSS_ROWS}")
+    print(f"  n={JIT_CROSS_ROWS}: {len(pairs)} results identical on cuda and cpu "
+          f"(shares, per-node ledger, rows); jit cache stats {a['stats']} on both")
+    return b["stats"]
+
+
+def jit_serving_phase(dev, card: str, n: int, cpu_stats: dict) -> dict:
+    """(a): the serving sequence at full size under jit_ops=True against the
+    same sequence eager, the K=8 drain against the serial submits, the
+    cache statistics against the CPU's at n=48, each captured kernel
+    against its plain version, and a replay under another engine's key."""
+    import torch
+
+    from repro_torch.core import threefry
+    from repro_torch.data import generate_healthlnk
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import reset_launch_counts
+
+    tables, plain = generate_healthlnk(n=n, seed=0, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eager = serving_sequence(dev, tables, jit=False, tenants=JIT_EAGER_SUBMITS, drains=False)
+    with _LaunchShapes() as shapes:
+        jit = serving_sequence(dev, tables)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = group_oracle(plain)
+    for label, res in [("warm", jit["warm"])] + [(f"serial {i}", r) for i, r in enumerate(jit["serial"])] + [
+            (f"drained {i}", r) for i, r in enumerate(jit["drained"])]:
+        check(_group_rows(res) == want, f"jit {label}: the GROUP BY differs from the plaintext oracle")
+    # no Resize: every submit of the query gives the same shares, so each
+    # is held against the eager warm submit
+    for x in [jit["warm"], *jit["serial"], *eager["serial"]]:
+        check(_same_result(x, eager["warm"]), "a jit submit differs from the eager submit (shares, ledger or rows)")
+    for x, y in zip(jit["drained"], jit["serial"]):
+        check(same_outputs(x.table, y.table) and ledger_rows(x.report) == ledger_rows(y.report),
+              "a drained slot differs from its serial submit")
+    check(_stats_view(jit["stats"]) == _stats_view(cpu_stats),
+          f"jit cache stats {jit['stats']} differ from the cpu's {cpu_stats} for the same sequence")
+    captured = jit["captured"]
+    check(captured and all(g.replays >= 1 for _, g in captured), "the warm submit captured no graph")
+    nodes = [s.node for s in jit["warm"].report.nodes if not s.node.startswith("Scan")]
+    check(len(captured) == len(nodes), f"{len(captured)} graphs for the protocol nodes {nodes}")
+    per_replay = _graph_launches(captured, shapes)
+    print(f"  {card}")
+    print(f"  (a) {JIT_SQL!r}, n={n}: {len(captured)} graphs for the warm submit's protocol nodes {nodes}")
+    for label, g in captured:
+        print(f"    {label}: capture {g.capture_s:.3f} s (warm-up, capture, instantiation), pool "
+              f"{g.pool_bytes} bytes, launches a replay {shapes.per_graph[id(g)]}")
+    eager_s, jit_s = eager["serial_s"], jit["serial_s"]
+    print(f"    warm submit {jit['warm_s']:.3f} s (eager {eager['warm_s']:.3f} s); the {JIT_TENANTS} serial "
+          f"submits {sum(jit_s):.3f} s, median {statistics.median(jit_s):.4f} s a submit (replays) against "
+          f"eager {sum(eager_s):.3f} s, median {statistics.median(eager_s):.4f} s")
+    print(f"    K={JIT_TENANTS} drain {jit['drain_s']:.3f} s (warm drain with its captures "
+          f"{jit['warm_drain_s']:.3f} s) against {JIT_TENANTS} serial submits {sum(jit_s):.3f} s; batch "
+          f"{jit['batch_stats']}")
+    pools = sum(g.pool_bytes for _, g in jit["graphs"])
+    print(f"    {len(jit['graphs'])} graphs hold {pools} pool bytes; peak device memory {peak / 2**30:.2f} GiB; "
+          f"jit cache {jit['stats']} (the cpu at n={JIT_CROSS_ROWS}: {cpu_stats}); each submit's shares, "
+          f"per-node ledger and rows equal the eager submit's, each drained slot its serial submit's, "
+          f"every answer the oracle's")
+    # another engine's key: a replay of the same entry draws with its keys
+    plan = jit["warm"].plan
+    misses = Engine.jit_cache_stats()["misses"]
+    other, _ = Engine(tables, key=threefry.PRNGKey(77), jit_ops=True, device=dev).execute(plan)
+    check(Engine.jit_cache_stats()["misses"] == misses, "another key's engine missed the cache")
+    fresh, _ = Engine(tables, key=threefry.PRNGKey(77), device=dev).execute(plan)
+    check(same_outputs(other, fresh), "a replay under another engine's key differs from that key's eager run")
+    check(not same_outputs(other, jit["warm"].table), "a replay under another key gave the first engine's shares")
+    print("    a replay under another engine's key (77) gives that key's eager shares, not key 5's")
+    print("  kernels inside the graphs, at the shapes the captures gave them:")
+    reset_launch_counts()
+    kernel_checks = graph_kernel_checks(dev, shapes.seen)
+    reset_launch_counts()
+    _clear_jit(dev)
+    return {"n": n, "peak_bytes": peak, "stats": jit["stats"], "cpu_stats": cpu_stats,
+            "captures": [{"label": lb, "capture_s": g.capture_s, "pool_bytes": g.pool_bytes,
+                          "launches": shapes.per_graph[id(g)]} for lb, g in captured],
+            "pool_bytes": pools, "graphs": len(jit["graphs"]), "launches_per_replay": per_replay,
+            "warm_s": jit["warm_s"], "eager_warm_s": eager["warm_s"], "serial_s": jit_s, "eager_serial_s": eager_s,
+            "drain_s": jit["drain_s"], "warm_drain_s": jit["warm_drain_s"],
+            "graph_launches": _graph_launches(jit["graphs"], shapes), "kernel_checks": kernel_checks,
+            "answer_groups": len(want)}
+
+
+def _jit_aspirin_run(dev, i: int, plan, jit, eager, want, eager_run) -> dict:
+    """(b)'s execution ``i`` on the jit engine: its answer against the
+    oracle and, for the first JIT_EAGER_CHECKS, its shares, per-node ledger
+    and S against the eager engine's (or phase 3's ``eager_run``)."""
+    from repro_torch.data import revealed_answer
+    from repro_torch.engine import Engine
+
+    before, graphs_before = Engine.jit_cache_stats(), {id(g) for _, g in _graphs()}
+    ctr = jit._resize_ctr  # the noise counter this execution starts from
+    (out, rep), seconds = _timed(dev, lambda: jit.execute(plan))
+    after = Engine.jit_cache_stats()
+    got = revealed_answer("aspirin_count", plan, out)
+    check(got == want, f"aspirin_count under jit, execution {i + 1}: {got} differs from the oracle {want}")
+    row = {"seconds": seconds, "misses": after["misses"] - before["misses"],
+           "hits": after["hits"] - before["hits"], "captures": len(_graphs()) - len(graphs_before),
+           "s": [s.extra.get("s") for s in rep.nodes if "s" in s.extra], "result": got}
+    if i < JIT_EAGER_CHECKS:
+        if i == 0 and eager_run is not None:
+            want_shares, want_ledger = eager_run
+            row["eager_seconds"] = None
+        else:
+            eager._resize_ctr = ctr
+            (eout, erep), row["eager_seconds"] = _timed(dev, lambda: eager.execute(plan))
+            want_shares, want_ledger = share_rows(eout), ledger_rows(erep)
+        got_shares = share_rows(out)
+        check(list(got_shares) == list(want_shares) and all((got_shares[k] == want_shares[k]).all()
+                                                             for k in got_shares)
+              and ledger_rows(rep) == want_ledger,
+              f"aspirin_count execution {i + 1}: jit and eager differ (shares, per-node ledger or S)")
+    row["capture_s"] = sum(g.capture_s for _, g in _graphs() if id(g) not in graphs_before)
+    eager_note = "" if "eager_seconds" not in row else (
+        " (identical shares, ledger and S to phase 3's eager run)" if row["eager_seconds"] is None
+        else f" (eager {row['eager_seconds']:.3f} s, identical shares, ledger and S)")
+    print(f"  (b) aspirin_count execution {i + 1}: {seconds:.3f} s, of it {row['capture_s']:.3f} s capturing"
+          + eager_note
+          + f", cache misses {row['misses']}, hits {row['hits']}, new graphs {row['captures']}, S {row['s']}, "
+          f"answer {got} = oracle")
+    return row
+
+
+def jit_aspirin_phase(dev, n: int, eager_run=None) -> dict:
+    """(b): aspirin_count compiled from its SQL with Beta(2,6) parallel
+    Resizers on every internal operator and the sort-merge join (phase 3's
+    "aspirin_count sort-merge"), executed JIT_EXECUTIONS times on one
+    Engine(jit_ops=True); the first JIT_EAGER_CHECKS against an eager
+    engine with the same key and noise counters (shares, per-node ledger,
+    S, rows), every answer against the oracle. Nodes after a Resize miss
+    the cache when S changes. ``eager_run`` (share_rows, ledger_rows)
+    stands in for the first eager execution: phase 3 ran it (the same
+    tables, plan, key and counter)."""
+    import torch
+
+    from repro_torch.core import threefry
+    from repro_torch.data import generate_healthlnk, plaintext_oracle
+    from repro_torch.engine import Engine
+
+    tables, plain = generate_healthlnk(n=n, seed=0, device=dev)
+    plan = sortmerge_plan("aspirin_count", tables, plain)
+    want = plaintext_oracle("aspirin_count", plain)
+    _clear_jit(dev)
+    jit = Engine(tables, key=threefry.PRNGKey(44), jit_ops=True, device=dev)
+    eager = Engine(tables, key=threefry.PRNGKey(44), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _LaunchShapes() as shapes:
+        runs = [_jit_aspirin_run(dev, i, plan, jit, eager, want, eager_run) for i in range(JIT_EXECUTIONS)]
+    graphs = _graphs()
+    peak = torch.cuda.max_memory_allocated(dev)
+    pools = sum(g.pool_bytes for _, g in graphs)
+    launches = _graph_launches(graphs, shapes)
+    print(f"    {len(graphs)} graphs, {pools} pool bytes, peak device memory {peak / 2**30:.2f} GiB, jit cache "
+          f"{Engine.jit_cache_stats()}; kernel launches recorded into the graphs {launches}")
+    out = {"n": n, "runs": runs, "graphs": len(graphs), "pool_bytes": pools, "peak_bytes": peak,
+           "graph_launches": launches, "stats": Engine.jit_cache_stats(),
+           "captures": [{"label": lb, "capture_s": g.capture_s, "pool_bytes": g.pool_bytes, "replays": g.replays,
+                         "launches": shapes.per_graph[id(g)]} for lb, g in graphs]}
+    _clear_jit(dev)
+    return out
+
+
+def jit_phase(dev, card: str, n: int = ROWS_PER_TABLE) -> dict:
+    """Phase 14: the n=48 cross-device check, (a) and (b); (b)'s first
+    execution is held against phase 3's eager aspirin_count where it ran."""
+    t0 = time.perf_counter()
+    cpu_stats = jit_cross_device(dev)
+    serving = jit_serving_phase(dev, card, n, cpu_stats)
+    aspirin = jit_aspirin_phase(dev, n, EAGER_RUNS.get("aspirin_count sort-merge") if n == ROWS_PER_TABLE else None)
+    seconds = time.perf_counter() - t0
+    print(f"  phase 14 in {seconds:.1f} s")
+    return {"serving": serving, "aspirin": aspirin, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -3450,6 +3949,10 @@ def main(argv=None) -> int:
           "kernel lies on it")
     sharded = shard_phase(dev, card, lm, train)
 
+    print(f"[14] the serving configuration under jit_ops=True (the per-operator cache as CUDA graphs) at "
+          f"n={ROWS_PER_TABLE}")
+    jit = jit_phase(dev, card)
+
     # launches on the main paths: phase 3's runs, phase 6's batches, phase
     # 8's submits and batch, phase 9's networked submits and phase 10's
     # sort&cut runs; a 64-bit build's, phase 10's ring-64 circuits
@@ -3484,7 +3987,7 @@ def main(argv=None) -> int:
                "n": ROWS_PER_TABLE, "later_n": LATER_ROWS, "three_join_n": THREE_JOIN_ROWS, "big_n": BIG_ROWS, "build_s": build_s, "total_s": total_s, "full": full,
                "timing": timing, "profile": profiled, "batch": [batch, stacked], "tracing": traced, "service": service, "runtime": runtime,
                "ring64": ring64, "wide_timing": wide_timing, "sortcut": sortcut, "lm": lm, "train": train,
-               "sharding": sharded, "summary": summary}
+               "sharding": sharded, "jit": jit, "summary": summary}
     print(f"total {total_s:.1f} s")
     if args.out:
         out = Path(args.out)

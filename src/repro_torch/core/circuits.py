@@ -209,9 +209,11 @@ def b2a(x: BShare, prf: PRFSetup, width: int | None = None) -> AShare:
         planes = BShare(torch.stack([(x.shares >> j) & 1 for j in range(width)], dim=-1))
         bits_a = bit2a(planes, prf)
         ring = x.ring
-        # 2^j as ring words (2^31 / 2^63 wrap to the storage type's minimum)
-        weights = torch.tensor(
-            [ring.word(1 << j) for j in range(width)], dtype=ring.dtype, device=x.device
+        # 2^j as ring words (2^31 / 2^63 wrap to the storage type's minimum),
+        # made on the device: no host-to-device copy inside a captured graph
+        weights = torch.bitwise_left_shift(
+            torch.ones(width, dtype=ring.dtype, device=x.device),
+            torch.arange(width, dtype=ring.dtype, device=x.device),
         )
         # products wrap in the storage type; an int64 sum wraps mod 2^64, and
         # the sum of width int32 words cannot overflow it

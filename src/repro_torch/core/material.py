@@ -12,10 +12,12 @@ construction. A port of ``repro.core.material``.
 The active source is thread-local, installed by :func:`material_scope`
 around an engine execution; the call sites in ``core/prf.py`` and
 ``core/shuffle.py`` consult it through :func:`active_if_concrete`, which
-steps aside when an input is wrapped by a ``torch.func`` transform. Under
-the engine's batched ``vmap`` the pair keys are closed over, not batched,
-so they stay concrete and batched executions consult the pool as serial
-ones do.
+steps aside when an input is wrapped by a ``torch.func`` transform, and
+inside :func:`compiled_scope`, while the engine's per-operator cache makes
+or replays an entry (the reference's jit traces see tracers there, so its
+pool is bypassed too). Under the engine's batched ``vmap`` the pair keys
+are closed over, not batched, so they stay concrete and batched executions
+consult the pool as serial ones do.
 
 Content addressing: a fetch key is ``(op, pair-key bytes, args)``, the
 bytes of the keys' uint32 words as the reference takes them, so one pool
@@ -35,6 +37,7 @@ __all__ = [
     "active_source",
     "active_if_concrete",
     "material_scope",
+    "compiled_scope",
     "content_key",
 ]
 
@@ -73,9 +76,10 @@ def _wrapped(x) -> bool:
 
 def active_if_concrete(*tensors) -> Optional[MaterialSource]:
     """The active source, unless an input is wrapped by a ``torch.func``
-    transform (its value is not a concrete key)."""
+    transform (its value is not a concrete key) or a cache entry of the
+    engine is being made or replayed (:func:`compiled_scope`)."""
     src = getattr(_STATE, "source", None)
-    if src is None:
+    if src is None or getattr(_STATE, "compiled", False):
         return None
     if any(_wrapped(t) for t in tensors):
         return None
@@ -91,6 +95,18 @@ def material_scope(source: Optional[MaterialSource]):
         yield source
     finally:
         _STATE.source = prev
+
+
+@contextlib.contextmanager
+def compiled_scope():
+    """Bypass the active source on this thread: the protocol body runs for a
+    compiled cache entry, whose randomness derives from its key inputs."""
+    prev = getattr(_STATE, "compiled", False)
+    _STATE.compiled = True
+    try:
+        yield
+    finally:
+        _STATE.compiled = prev
 
 
 def content_key(op: str, pair_keys, args: Tuple[Any, ...]) -> tuple:

@@ -8,6 +8,12 @@ here are bit-identical to it (:mod:`.threefry`).
 
 ``pair_keys`` is a (3, 2) int32 tensor on the CPU: key derivation is a few
 words of host arithmetic, and only the draws run on the shares' device.
+With ``device_keys=True`` (the engine's per-operator cache,
+:mod:`repro_torch.engine.executor`) the pair keys are a (3, 2) int32 tensor
+on the draws' device instead, and folds and draws hash them there with
+tensor operations (:func:`.threefry.fold_in_dev` and the rest): a captured
+CUDA graph reads its keys from that tensor, so a replay draws with whatever
+keys it holds then. Both paths give the same words for every key and tag.
 
 Draws, zero sharings and replicated values take the ring (ring-32 unless
 asked). A ring-64 word is the 32-bit threefry word zero-extended, as the
@@ -47,18 +53,21 @@ class PRFSetup:
     """Three pairwise PRF keys: pair_keys[i] is shared by parties i and i+1."""
 
     pair_keys: torch.Tensor  # (3, 2) int32 raw threefry keys, on the CPU
+    device_keys: bool = False  # True: the keys lie on the draws' device
 
     def fold(self, tag: int) -> "PRFSetup":
         """Derive fresh per-use keys (the PRF counter)."""
         src = material.active_if_concrete(self.pair_keys)
         if src is None:
-            return PRFSetup(_fold_keys(self.pair_keys, tag))
+            return self.fold_unpooled(tag)
         return PRFSetup(
             src.fetch("fold", self.pair_keys, (int(tag),), lambda: _fold_keys(self.pair_keys, tag))
         )
 
     def fold_unpooled(self, tag: int) -> "PRFSetup":
         """:meth:`fold` without the material source (a circuit level's fold)."""
+        if self.device_keys:
+            return PRFSetup(threefry.fold_in_dev(self.pair_keys, tag), True)
         return PRFSetup(_fold_keys(self.pair_keys, tag))
 
     def draw(self, shape: Tuple[int, ...], device, ring: Ring = RING32) -> torch.Tensor:
@@ -66,10 +75,10 @@ class PRFSetup:
         shape = tuple(int(s) for s in shape)
         src = material.active_if_concrete(self.pair_keys)
         if src is None:
-            return _draw_bits(self.pair_keys, shape, device, ring)
+            return _draw_bits(self, shape, device, ring)
         return src.fetch(
             "draw", self.pair_keys, (shape, ring.dtype_name),
-            lambda: _draw_bits(self.pair_keys, shape, device, ring),
+            lambda: _draw_bits(self, shape, device, ring),
         )
 
     def draw_uniform(self, shape: Tuple[int, ...], device) -> torch.Tensor:
@@ -77,9 +86,9 @@ class PRFSetup:
         shape = tuple(int(s) for s in shape)
         src = material.active_if_concrete(self.pair_keys)
         if src is None:
-            return _draw_uniform(self.pair_keys, shape, device)
+            return _draw_uniform(self, shape, device)
         return src.fetch(
-            "uniform", self.pair_keys, (shape,), lambda: _draw_uniform(self.pair_keys, shape, device)
+            "uniform", self.pair_keys, (shape,), lambda: _draw_uniform(self, shape, device)
         )
 
 
@@ -94,15 +103,19 @@ def widen(bits: torch.Tensor, ring: Ring) -> torch.Tensor:
     return bits.to(torch.int64) & 0xFFFFFFFF
 
 
-def _draw_bits(pair_keys: torch.Tensor, shape: Tuple[int, ...], device, ring: Ring = RING32) -> torch.Tensor:
+def _draw_bits(prf: PRFSetup, shape: Tuple[int, ...], device, ring: Ring = RING32) -> torch.Tensor:
+    if prf.device_keys:
+        return widen(threefry.bits_dev(prf.pair_keys, shape), ring)
     out = torch.empty((3,) + shape, dtype=ring.dtype, device=device)
-    for i, k in enumerate(pair_keys):
+    for i, k in enumerate(prf.pair_keys):
         out[i] = widen(threefry.bits(k, shape, device), ring)
     return out
 
 
-def _draw_uniform(pair_keys: torch.Tensor, shape: Tuple[int, ...], device) -> torch.Tensor:
-    return torch.stack([threefry.uniform(k, shape, device=device) for k in pair_keys])
+def _draw_uniform(prf: PRFSetup, shape: Tuple[int, ...], device) -> torch.Tensor:
+    if prf.device_keys:
+        return threefry.uniform_dev(prf.pair_keys, shape)
+    return torch.stack([threefry.uniform(k, shape, device=device) for k in prf.pair_keys])
 
 
 def setup_prf(key: torch.Tensor) -> PRFSetup:
@@ -112,7 +125,7 @@ def setup_prf(key: torch.Tensor) -> PRFSetup:
 
 def zero_share_unpooled(prf: PRFSetup, shape, device, xor: bool, ring: Ring = RING32) -> torch.Tensor:
     """A zero sharing without the material source (a gate's alpha)."""
-    f = _draw_bits(prf.pair_keys, tuple(int(s) for s in shape), device, ring)
+    f = _draw_bits(prf, tuple(int(s) for s in shape), device, ring)
     g = torch.roll(f, 1, dims=0)
     return f ^ g if xor else f - g
 

@@ -43,6 +43,8 @@ def _hop_perm(prf: PRFSetup, hop: int, n: int, device) -> torch.Tensor:
     sub = prf.fold(1000 + hop)
 
     def compute() -> torch.Tensor:
+        if sub.device_keys:
+            return threefry.permutation_dev(sub.pair_keys[hop], n)
         return threefry.permutation(sub.pair_keys[hop], n, device)
 
     src = material.active_if_concrete(sub.pair_keys)

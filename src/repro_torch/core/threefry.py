@@ -12,6 +12,13 @@ the port carries its own copy of JAX's generator:
   are asked for, with the key's two words entering as scalars — no host to
   device copy, so nothing synchronises the stream.
 
+The device-key path (``fold_in_dev``, ``split_dev``, ``bits_dev``,
+``uniform_dev``, ``permutation_dev``) takes keys as ``(..., 2)`` int32
+tensors on any device and hashes them with tensor operations there, the key
+words broadcast over the leading axes: nothing reads a key on the host, so
+a captured CUDA graph whose key tensor is refilled before each replay draws
+with the new keys. Both paths give the same words for every key and tag.
+
 Partitionable layout: element ``i`` of a draw of ``shape`` hashes the 64-bit
 counter ``i`` (row-major) split as ``(hi, lo)`` 32-bit words; ``bits`` is the
 XOR of the two output words, ``split(key, n)[i]`` is the output pair itself,
@@ -22,6 +29,7 @@ from __future__ import annotations
 import math
 from typing import Tuple, Union
 
+import numpy as np
 import torch
 
 from .ring import MASK32, s32
@@ -35,6 +43,11 @@ __all__ = [
     "permutation",
     "key_words",
     "make_key",
+    "fold_in_dev",
+    "split_dev",
+    "bits_dev",
+    "uniform_dev",
+    "permutation_dev",
 ]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -54,17 +67,22 @@ def key_words(key: torch.Tensor) -> Tuple[int, int]:
     return k[0] & MASK32, k[1] & MASK32
 
 
-def _hash(k1: int, k2: int, x0: Word, x1: Word) -> Tuple[Word, Word]:
-    """Threefry-2x32, 20 rounds. Key words are uint32 Python ints; the
-    counter words are either uint32 Python ints or int32 tensors (which wrap
-    mod 2^32 like uint32)."""
-    if isinstance(x0, torch.Tensor):
+def _hash(k1: Word, k2: Word, x0: Word, x1: Word) -> Tuple[Word, Word]:
+    """Threefry-2x32, 20 rounds. Every word is a uint32 Python int or an
+    int32 tensor (which wraps mod 2^32 like uint32); tensors broadcast. With
+    any tensor among them the result is a pair of tensors."""
+    if any(isinstance(w, torch.Tensor) for w in (k1, k2, x0, x1)):
 
         def add(a, b):
-            return a + (s32(b) if isinstance(b, int) else b)
+            if isinstance(a, int) and isinstance(b, int):
+                return s32(a + b)
+            return (s32(a) if isinstance(a, int) else a) + (s32(b) if isinstance(b, int) else b)
 
         def rotl(x, r):
             return (x << r) | ((x >> (32 - r)) & ((1 << r) - 1))
+
+        def xor(a, b):
+            return (s32(a) if isinstance(a, int) else a) ^ (s32(b) if isinstance(b, int) else b)
 
     else:
 
@@ -74,7 +92,10 @@ def _hash(k1: int, k2: int, x0: Word, x1: Word) -> Tuple[Word, Word]:
         def rotl(x, r):
             return ((x << r) | (x >> (32 - r))) & MASK32
 
-    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+        def xor(a, b):
+            return a ^ b
+
+    ks = (k1, k2, xor(xor(k1, k2), _PARITY))
     x0 = add(x0, ks[0])
     x1 = add(x1, ks[1])
     for i in range(5):
@@ -82,7 +103,7 @@ def _hash(k1: int, k2: int, x0: Word, x1: Word) -> Tuple[Word, Word]:
             x0 = add(x0, x1)
             x1 = rotl(x1, r) ^ x0
         x0 = add(x0, ks[(i + 1) % 3])
-        x1 = add(x1, (ks[(i + 2) % 3] + i + 1) & MASK32)
+        x1 = add(x1, add(ks[(i + 2) % 3], i + 1))
     return x0, x1
 
 
@@ -122,14 +143,8 @@ def bits(key: torch.Tensor, shape: Tuple[int, ...], device) -> torch.Tensor:
     return b1 ^ b2
 
 
-def uniform(
-    key: torch.Tensor,
-    shape: Tuple[int, ...] = (),
-    minval: float = 0.0,
-    maxval: float = 1.0,
-    device="cpu",
-) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
+def _unit_floats(b: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    """``jax.random.uniform``'s floats from its 32-bit words ``b``: the top
     23 bits become the mantissa of a float in [1, 2), minus one, then
     ``floats * (maxval - minval) + minval``.
 
@@ -137,14 +152,27 @@ def uniform(
     it is computed as one here: the float32 product is exact in float64 and
     the sum rounds once there before the float32 cast. (That double rounding
     can differ from a true FMA only when the float64 sum lies exactly on a
-    float32 halfway point.)"""
-    b = bits(key, shape, device)
+    float32 halfway point.) The bounds enter as Python scalars of their
+    float32 values (``maxval - minval`` rounded in float32), so no tensor is
+    copied from the host."""
     mant = ((b >> 9) & ((1 << 23) - 1)) | 0x3F800000
     floats = mant.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
-    scaled = floats.double() * (hi - lo).double() + lo.double()
-    return torch.maximum(lo, scaled.float())
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(minval))
+    scaled = floats.double() * span + lo
+    return torch.clamp(scaled.float(), min=lo)
+
+
+def uniform(
+    key: torch.Tensor,
+    shape: Tuple[int, ...] = (),
+    minval: float = 0.0,
+    maxval: float = 1.0,
+    device="cpu",
+) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` (see
+    :func:`_unit_floats`)."""
+    return _unit_floats(bits(key, shape, device), minval, maxval)
 
 
 def permutation(key: torch.Tensor, n: int, device) -> torch.Tensor:
@@ -160,6 +188,54 @@ def permutation(key: torch.Tensor, n: int, device) -> torch.Tensor:
     for _ in range(rounds):
         key, sub = split(key)
         sort_keys = bits(sub, (n,), device) ^ _INT32_MIN
+        order = torch.sort(sort_keys, stable=True).indices
+        x = x[order]
+    return x
+
+
+# -----------------------------------------------------------------------------
+# The device-key path: keys as (..., 2) int32 tensors, hashed where they lie
+# -----------------------------------------------------------------------------
+
+
+def fold_in_dev(keys: torch.Tensor, data: int) -> torch.Tensor:
+    """:func:`fold_in` of every key of a ``(..., 2)`` key tensor, as tensor
+    operations on its device."""
+    x0, x1 = _hash(keys[..., 0], keys[..., 1], 0, int(data) & MASK32)
+    return torch.stack([x0, x1], dim=-1)
+
+
+def split_dev(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """:func:`split` of a ``(2,)`` key tensor -> ``(num, 2)`` on its device."""
+    ctr = torch.arange(num, dtype=torch.int32, device=key.device)
+    x0, x1 = _hash(key[0], key[1], torch.zeros_like(ctr), ctr)
+    return torch.stack([x0, x1], dim=-1)
+
+
+def bits_dev(keys: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """:func:`bits` of every key of a ``(..., 2)`` key tensor -> ``(...,
+    *shape)`` int32 words on the keys' device."""
+    shape = tuple(int(s) for s in shape)
+    lo = _counters(shape, keys.device)
+    lead = tuple(keys.shape[:-1]) + (1,) * len(shape)
+    b1, b2 = _hash(keys[..., 0].reshape(lead), keys[..., 1].reshape(lead), torch.zeros_like(lo), lo)
+    return b1 ^ b2
+
+
+def uniform_dev(
+    keys: torch.Tensor, shape: Tuple[int, ...] = (), minval: float = 0.0, maxval: float = 1.0
+) -> torch.Tensor:
+    """:func:`uniform` of every key of a ``(..., 2)`` key tensor."""
+    return _unit_floats(bits_dev(keys, shape), minval, maxval)
+
+
+def permutation_dev(key: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`permutation` of a ``(2,)`` key tensor, on its device."""
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(MASK32)))
+    for _ in range(rounds):
+        key, sub = split_dev(key)
+        sort_keys = bits_dev(sub, (n,)) ^ _INT32_MIN
         order = torch.sort(sort_keys, stable=True).indices
         x = x[order]
     return x

@@ -22,15 +22,32 @@ nodes run per slot, each with its own noise counter; if the revealed trim
 sizes diverge, the batch splits into per-slot execution for the rest of the
 plan.
 
-The reference's per-operator jit cache (``jit_ops``) has no counterpart
-yet: it waits for CUDA graphs (ROADMAP.md, Queue 2, "CUDA graphs over
-host-bound loops").
+Per-operator cache (``jit_ops=True``), the reference's jit cache: a
+process-wide LRU of 128 entries (on the card also evicted while the
+entries' graph pools hold more than a quarter of its memory), keyed by
+``(node.label, node.describe(), child sizes and column types)``, shared by
+every :class:`Engine`. Stateful operators (Scan, Resize: ``engine_apply``)
+bypass it. An entry is a :class:`_CompiledOp`: on ``cuda`` a captured
+``torch.cuda.CUDAGraph`` per input signature, replayed with the call's
+shares and PRF keys copied into its static inputs (the keys are graph
+inputs: the protocol runs on the device-key path of
+:mod:`repro_torch.core.prf`, so a second engine with another key draws
+with its own keys); on ``cpu`` the same cache around an eager call on that
+path. The ledger tally recorded when the entry was made
+is replayed on every call as one ``log_comm(label, rounds, bytes)``, and
+inside an entry the offline material pool is bypassed
+(:func:`~repro_torch.core.material.compiled_scope`), as under the
+reference's trace. ``jit_cache_stats()`` counts logical hits: a batched
+pass that serves K slots counts K, or one miss and K - 1 hits when it makes
+the entry.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import time
+import warnings
+from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -39,8 +56,9 @@ from torch.func import vmap
 
 from ..config import RuntimeConfig, resolve_device, use_config
 from ..core import material, threefry
-from ..core.ledger import CommLedger, active_exchange, batched_tally
+from ..core.ledger import CommLedger, active_exchange, batched_tally, log_comm
 from ..core.prf import PRFSetup, setup_prf
+from ..kernels import library
 from ..obs import redact
 from ..obs import trace as obs_trace
 from ..ops.table import SecretTable
@@ -49,6 +67,8 @@ from ..plan.registry import infer_schema, lookup, plan_batchable
 from ..sql.catalog import Catalog
 
 __all__ = ["Engine", "ExecutionReport", "NodeStats"]
+
+_EMPTY_GRAPH = "The CUDA Graph is empty"  # torch's warning for a graph without work (Project)
 
 
 @dataclasses.dataclass
@@ -246,6 +266,134 @@ class _BatchCtx:
         return self.ctr_base + slot * self.resizes_per_slot + resize_index
 
 
+@dataclasses.dataclass
+class _Graph:
+    """One captured protocol body: the graph, its static inputs (every share
+    tensor of the input tables, and the (3, 2) PRF key tensor), its outputs,
+    and what the capture cost."""
+
+    graph: "torch.cuda.CUDAGraph"
+    keys: torch.Tensor
+    inputs: List[torch.Tensor]
+    outputs: List[torch.Tensor]
+    out_spec: object
+    capture_s: float  # warm-up (if any), capture and instantiation
+    pool_bytes: int  # device memory the graph's private pool reserved
+    replays: int = 0
+
+
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
+    """The side stream captures run on (one per device, as
+    ``torch.cuda.graph`` keeps one; capture needs a stream other than the
+    default)."""
+    if dev not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _CAPTURE_STREAMS[dev]
+
+
+class _CompiledOp:
+    """One entry of the per-operator cache: a protocol body ``fn(prf,
+    *tables)``, compiled for the inputs it is called with, and the ledger
+    tally recorded when the entry was made.
+
+    A call runs the body on the device-key path, inside
+    :func:`material.compiled_scope` and under a ledger of its own, and
+    returns its output; the caller replays the tally. On ``cuda`` each input
+    signature (the tables' tree, shapes and dtypes) holds one
+    :class:`_Graph` in its own memory pool: the first call captures the
+    body and replays it; later calls copy their inputs and keys into the
+    static buffers, replay, and return clones of the outputs (the next
+    replay overwrites them). Before the first capture of a protocol
+    (``family``: the node's label and ``describe()``, and the batch width of
+    a batched entry) in the process, the body runs once eagerly on a side stream:
+    that warm-up loads every kernel the body launches outside capture. The
+    kernel library is built and its shared-memory grants made
+    (:func:`repro_torch.kernels.library`) before any capture. A capture that
+    fails raises with the node's label. On ``cpu`` the body runs eagerly."""
+
+    _WARMED: set = set()  # (family, device) pairs whose protocol has run eagerly
+
+    def __init__(self, label: str, fn: Callable, family: tuple = ()):
+        self.label = label
+        self.fn = fn
+        self.family = family
+        self.tally: Optional[Dict[str, int]] = None
+        self.graphs: Dict[tuple, _Graph] = {}
+
+    @property
+    def pool_bytes(self) -> int:
+        return sum(g.pool_bytes for g in self.graphs.values())
+
+    def __call__(self, keys: torch.Tensor, tables: Sequence) -> SecretTable:
+        if keys.device.type != "cuda":
+            return self._run(PRFSetup(keys, True), tables)
+        leaves, spec = pytree.tree_flatten(list(tables))
+        sig = (spec, tuple((tuple(x.shape), x.dtype) for x in leaves))
+        g = self.graphs.get(sig)
+        if g is None:
+            g = self.graphs[sig] = self._capture(keys, leaves, spec)
+        else:
+            for buf, x in zip(g.inputs, leaves):
+                buf.copy_(x)
+            g.keys.copy_(keys)
+        g.graph.replay()
+        g.replays += 1
+        return pytree.tree_unflatten([o.clone() for o in g.outputs], g.out_spec)
+
+    def _run(self, prf: PRFSetup, tables: Sequence) -> SecretTable:
+        with CommLedger() as led, material.compiled_scope():
+            out = self.fn(prf, *tables)
+        if self.tally is None:
+            self.tally = led.tally()
+        return out
+
+    def _capture(self, keys: torch.Tensor, leaves: List[torch.Tensor], spec) -> _Graph:
+        dev = keys.device
+        static_keys = keys.clone()
+        inputs = [torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(x) for x in leaves]
+
+        def body():
+            return self.fn(PRFSetup(static_keys, True), *pytree.tree_unflatten(inputs, spec))
+
+        t0 = time.perf_counter()
+        library()
+        if (self.family, dev) not in _CompiledOp._WARMED:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side), CommLedger(), material.compiled_scope():
+                body()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            _CompiledOp._WARMED.add((self.family, dev))
+        torch.cuda.synchronize(dev)
+        # the new private pool's segments: reserved memory grows by them
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with warnings.catch_warnings(), torch.cuda.stream(_capture_stream(dev)):
+                warnings.filterwarnings("ignore", message=_EMPTY_GRAPH)
+                graph.capture_begin()
+                try:
+                    out = self._run(PRFSetup(static_keys, True), pytree.tree_unflatten(inputs, spec))
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except Exception:
+                        pass  # the capture is invalid; the body's error is the one to report
+                    raise
+                graph.capture_end()
+        except Exception as e:
+            raise RuntimeError(f"capturing {self.label} as a CUDA graph failed: {e}") from e
+        outputs, out_spec = pytree.tree_flatten(out)
+        return _Graph(
+            graph=graph, keys=static_keys, inputs=inputs, outputs=outputs, out_spec=out_spec,
+            capture_s=time.perf_counter() - t0,
+            pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
+        )
+
+
 class Engine:
     """Executes plans over a set of secret-shared base tables.
 
@@ -254,9 +402,60 @@ class Engine:
     the PRF setup derives from ``fold_in(key, 7)`` as in the reference,
     unless ``prf`` is given. ``bucket_fn`` pads every revealed size S to
     ``max(bucket_fn(S), S)``; ``validate`` schema-checks each plan before
-    any MPC work. ``jit_ops=True`` (the reference's per-operator jit cache)
-    is not available in the port yet.
+    any MPC work. ``jit_ops=True`` runs every protocol operator through the
+    process-wide per-operator cache (CUDA graphs on the card; see the
+    module docstring).
     """
+
+    # process-wide, LRU-bounded: a serving session sees an unbounded stream
+    # of (query, revealed size) shapes; eviction drops an entry's graphs
+    # and their memory, and costs a capture on a shape not seen recently
+    _JIT_CACHE: "OrderedDict" = OrderedDict()
+    _JIT_CACHE_MAX = 128
+    # on the card each entry's graphs keep a memory pool of their own, so the
+    # cache is bounded by bytes too: the share of the card's memory its
+    # pools may hold before the least recently used entries are evicted
+    _JIT_POOL_SHARE = 0.25
+    # logical counters: a lookup that serves K batch slots counts K hits,
+    # and making an entry for them one miss and K - 1 hits
+    _JIT_STATS: Dict[str, int] = {"hits": 0, "misses": 0}
+
+    @classmethod
+    def _jit_cache_get(cls, key, count: int = 1):
+        hit = cls._JIT_CACHE.get(key)
+        if hit is not None:
+            cls._JIT_CACHE.move_to_end(key)
+            cls._JIT_STATS["hits"] += count
+        else:
+            cls._JIT_STATS["misses"] += 1
+            if count > 1:
+                cls._JIT_STATS["hits"] += count - 1
+        return hit
+
+    @classmethod
+    def _jit_cache_put(cls, key, value) -> None:
+        cls._JIT_CACHE[key] = value
+        cls._JIT_CACHE.move_to_end(key)
+        while len(cls._JIT_CACHE) > cls._JIT_CACHE_MAX:
+            cls._JIT_CACHE.popitem(last=False)
+
+    @classmethod
+    def _jit_cache_fit(cls, budget: int) -> None:
+        """Evict least-recently-used entries while the cache's graph pools
+        hold more than ``budget`` bytes; the entry used last stays."""
+        held = sum(e.pool_bytes for e in cls._JIT_CACHE.values())
+        while held > budget and len(cls._JIT_CACHE) > 1:
+            _, old = cls._JIT_CACHE.popitem(last=False)
+            held -= old.pool_bytes
+
+    @classmethod
+    def jit_cache_stats(cls) -> Dict[str, float]:
+        h, m = cls._JIT_STATS["hits"], cls._JIT_STATS["misses"]
+        return {"hits": h, "misses": m, "hit_rate": h / max(h + m, 1), "size": len(cls._JIT_CACHE)}
+
+    @classmethod
+    def reset_jit_stats(cls) -> None:
+        cls._JIT_STATS["hits"] = cls._JIT_STATS["misses"] = 0
 
     def __init__(
         self,
@@ -269,11 +468,6 @@ class Engine:
         config: Optional[RuntimeConfig] = None,
         device=None,
     ):
-        if jit_ops:
-            raise NotImplementedError(
-                "jit_ops: the per-operator jit cache has no port yet; it waits for "
-                "CUDA graphs (ROADMAP.md, Queue 2, 'CUDA graphs over host-bound loops')"
-            )
         self.device = resolve_device(device)
         for name, t in tables.items():
             if t.device.type != self.device.type:
@@ -321,7 +515,7 @@ class Engine:
             x0 = (drv.count, drv.stall_seconds, drv.wire_bytes)
         t0 = time.perf_counter()
         with led:
-            out = d.apply(self, node, children)
+            out = self._apply(node, children)
         self._block()
         dt = time.perf_counter() - t0
         tally = led.tally()
@@ -374,6 +568,48 @@ class Engine:
         out, stats = self._run_node_slot(node, children)
         report.nodes.append(stats)
         return out
+
+    @staticmethod
+    def _cache_key(node: PlanNode, children: List[SecretTable]):
+        child_sig = tuple(
+            (t.n, tuple(sorted((k, type(v).__name__) for k, v in t.cols.items()))) for t in children
+        )
+        # node.label tells apart physical variants that share a describe()
+        # string (JoinSortMerge inherits Join's)
+        return (node.label, node.describe(), child_sig)
+
+    def _device_keys(self) -> torch.Tensor:
+        """The engine's pair keys on its device (a cache entry's key input)."""
+        if getattr(self, "_keys_for", None) is not self.prf:
+            self._keys_for, self._keys = self.prf, self.prf.pair_keys.to(self.device)
+        return self._keys
+
+    def _cached(self, key, count: int, label: str, fn: Callable, tables) -> SecretTable:
+        """Run ``tables`` through the cache entry under ``key`` (made around
+        the protocol body ``fn`` on a miss) and replay its tally into the
+        active ledger."""
+        entry = Engine._jit_cache_get(key, count)
+        if entry is None:
+            # the key without its input signature (key[2]): the protocol
+            entry = _CompiledOp(label, fn, family=key[:2] + key[3:])
+            Engine._jit_cache_put(key, entry)
+        out = entry(self._device_keys(), tables)
+        if self.device.type == "cuda":
+            Engine._jit_cache_fit(int(Engine._JIT_POOL_SHARE * torch.cuda.mem_get_info(self.device)[1]))
+        t = entry.tally
+        log_comm(label.lower(), int(t["rounds"]), int(t["bytes_per_party"]))
+        return out
+
+    def _apply(self, node: PlanNode, children: List[SecretTable]) -> SecretTable:
+        d = lookup(type(node))
+        if d.engine_apply is not None:
+            # stateful operators (Scan reads the tables; Resize folds the
+            # per-execution noise counter) bypass the cache
+            return d.engine_apply(self, node, children)
+        fn = d.protocol(node)
+        if not self.jit_ops:
+            return fn(self.prf, *children)
+        return self._cached(self._cache_key(node, children), 1, node.label, fn, children)
 
     # ------------------------------------------------------------------
     # Batched execution: K same-shape queries, one engine pass
@@ -456,13 +692,12 @@ class Engine:
         """One vmapped pass for all K slots. The ledger records the per-slot
         cost (the protocol keeps per-slot shapes), replayed into every slot's
         report; the physical tally charges bytes K times and rounds once."""
-        d = lookup(type(node))
         led = CommLedger()
         src = material.active_source()
         h0, m0 = (src.hits, src.misses) if src is not None else (0, 0)
         t0 = time.perf_counter()
         with led:
-            out = vmap(lambda *ts: d.apply(self, node, list(ts)))(*[c.stacked for c in children])
+            out = self._apply_batched(node, [c.stacked for c in children], ctx.k)
         self._block()
         dt = time.perf_counter() - t0
         tally = led.tally()
@@ -520,6 +755,27 @@ class Engine:
             bs["physical_rounds"] += stats.rounds
             outs.append(out)
         return _BatchVal(k=ctx.k, slots=outs)
+
+    def _apply_batched(self, node: PlanNode, stacked: List[SecretTable], k: int) -> SecretTable:
+        """The node's protocol under ``vmap`` over the batch axis; under
+        ``jit_ops`` the vmapped body is cached like the serial one, and an
+        entry that serves K slots counts K logical hits."""
+        fn = lookup(type(node)).protocol(node)
+
+        def batched(prf, *tables):
+            return vmap(lambda *ts: fn(prf, *ts))(*tables)
+
+        if not self.jit_ops:
+            return batched(self.prf, *stacked)
+        key = (node.label, node.describe(), self._batch_sig(stacked), ("batch", k))
+        return self._cached(key, k, node.label, batched, stacked)
+
+    @staticmethod
+    def _batch_sig(stacked: List[SecretTable]):
+        return tuple(
+            (int(t.valid.shares.shape[-1]), tuple(sorted((c, type(v).__name__) for c, v in t.cols.items())))
+            for t in stacked
+        )
 
     # -- stateful batch hooks (dispatched via OperatorDef.batch_apply) -------
 

@@ -27,8 +27,11 @@ reference shuffles or sorts ring-64 shares, and an int64 plane raises
 :func:`library` builds them at first use — one ``nvcc`` per source for
 ``sm_90a``, all started together, linked into one shared library — from the
 checkout's sources alone into ``kernels/_build/`` (ignored by git), and loads
-it with ``ctypes``. A build holds an exclusive ``flock`` on
-``_build/build.lock`` from the staleness check through the link, so
+it with ``ctypes``; loading it grants the two-pass gather kernels their
+largest dynamic shared memory once (``gather_prepare``), so that a launch
+inside a CUDA graph capture sets no function attribute. A build holds an
+exclusive ``flock`` on ``_build/build.lock`` from the staleness check
+through the link, so
 processes that start together (the runtime's three party processes) build
 the library once and never link another's half-written object. Each
 wrapper (``rss_gate.gate``, ``shuffle_gather.gather_hop``,
@@ -251,6 +254,15 @@ def library() -> ctypes.CDLL:
                 wide.restype = i32
             lib.kernel_error_string.argtypes = [i32]
             lib.kernel_error_string.restype = ctypes.c_char_p
+            # the two-pass gather's shared-memory grants, made at load and
+            # never again: no launch sets an attribute inside a graph capture
+            lib.gather_prepare.argtypes = []
+            lib.gather_prepare.restype = i32
+            err = lib.gather_prepare()
+            if err != 0:
+                raise RuntimeError(
+                    f"gather_prepare failed: CUDA error {err} ({lib.kernel_error_string(err).decode()})"
+                )
             _LIB = lib
     return _LIB
 

@@ -387,3 +387,16 @@ extern "C" int gather_pass2_launch(const void* cols, int ncols, int planes, cons
       c, static_cast<const uint32_t*>(packed), n, chunk_rows);
   return (int)cudaGetLastError();
 }
+
+// Grant each two-pass kernel, once, the most dynamic shared memory any of its
+// launches can ask for (at most 229,504 bytes, under the H100's 227 KB), so
+// that no later launch sets a function attribute: a launch inside a CUDA
+// graph capture then only enqueues its kernel. Returns the first error.
+extern "C" int gather_prepare() {
+  cudaError_t err = allow_shared(gather_plan_kernel, sizeof(uint32_t) * ((size_t)kMaxRows + kMaxTiles + 32));
+  if (err == cudaSuccess)
+    err = allow_shared(gather_pass1_kernel,
+                       sizeof(uint32_t) * ((size_t)kMaxRows + (kMaxRows + 1) / 2 + 2 * (size_t)kMaxChunks + 32));
+  if (err == cudaSuccess) err = allow_shared(gather_pass2_kernel, sizeof(uint32_t) * (size_t)kMaxRows);
+  return (int)err;
+}

@@ -82,9 +82,9 @@ def _derive(op: str, parent: torch.Tensor, args: tuple, device) -> torch.Tensor:
     if op == "fold":
         return _fold_keys(parent, args[0])
     if op == "draw":
-        return _draw_bits(parent, tuple(args[0]), device, ring_named(args[1]))
+        return _draw_bits(PRFSetup(parent), tuple(args[0]), device, ring_named(args[1]))
     if op == "uniform":
-        return _draw_uniform(parent, tuple(args[0]), device)
+        return _draw_uniform(PRFSetup(parent), tuple(args[0]), device)
     if op in ("zero_add", "zero_xor"):
         return zero_share_unpooled(PRFSetup(parent), tuple(args[0]), device, op == "zero_xor", ring_named(args[1]))
     if op == "perm":

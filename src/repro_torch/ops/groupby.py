@@ -58,7 +58,7 @@ def _edge_fill(col: BShare, row: int, fill: int) -> BShare:
     if not fill:
         return col
     c = torch.zeros(col.shape, dtype=torch.int32, device=col.device)
-    c[row] = fill
+    c[row].fill_(fill)  # a fill, not a host-to-device copy: capturable
     return col.xor_public(c)
 
 
@@ -85,7 +85,7 @@ def segment_starts(key: Union[BShare, Sequence[BShare]], valid: BShare, prf: PRF
     # row 0 always starts a segment: force e_0 = 0 with a public mask
     n = keys[0].shape[0]
     m = torch.ones(n, dtype=torch.int32, device=e.device)
-    m[0] = 0
+    m[0].fill_(0)
     e = e.and_public(m)
     return and_bit(valid, e.xor_public(1), prf.fold(602))
 
@@ -96,7 +96,7 @@ def _shift_a(x: AShare, d: int, fill: int) -> AShare:
     s = x.shares
     shifted = torch.cat([torch.zeros_like(s[:, :d]), s[:, :-d]], dim=1)
     fills = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
-    fills[:d] = fill
+    fills[:d].fill_(fill)
     return AShare(shifted).add_public(fills)
 
 

@@ -68,7 +68,7 @@ def _rows(col: BShare, d: int, fill: int) -> BShare:
     if not fill:
         return out
     fills = torch.zeros(col.shape, dtype=torch.int32, device=col.device)
-    fills[:, :d] = fill
+    fills[:, :d].fill_(fill)  # a fill, not a host-to-device copy: capturable
     return out.xor_public(fills)
 
 
@@ -122,7 +122,7 @@ def oblivious_join_sortmerge(
     # ---- union: build rows, then probe rows, then padding -------------------
     ukey = BShare.concat([btab.bshare_col(bkey, p), ptab.bshare_col(pkey, p)]).pad_rows(n)
     origin = torch.zeros(n, dtype=torch.int32, device=device)
-    origin[nb:nb + nprobe] = 1
+    origin[nb:nb + nprobe].fill_(1)
     uvalid = BShare.concat([btab.valid, ptab.valid]).pad_rows(n)
 
     payload: Dict[str, BShare] = {"__valid": uvalid}
@@ -146,7 +146,7 @@ def oblivious_join_sortmerge(
     # ---- segment boundaries and build-row markers ---------------------------
     e = eq(key_s, _shift_down(key_s), p.fold(3))
     first = torch.ones(n, dtype=torch.int32, device=device)
-    first[0] = 0
+    first[0].fill_(0)
     bnd = e.and_public(first).xor_public(1)  # row 0 always starts a segment
     defined = and_bit(orig_s.xor_public(1), valid_s, p.fold(4))
 

@@ -7,13 +7,15 @@ applies it, its cost ``estimate`` (``(node, child estimates, cost model) ->
 :mod:`.cost` sums), its SQL rendering hooks (``render_rel`` for the
 FROM/WHERE subtree, ``render_head``, ``render_order``, ``render_having``;
 ``sql_shape`` says where the node may stand in rendered SQL) and its
-Resizer-placement hints. The port runs eagerly with no jit cache, so one
-``apply(engine, node, children)`` hook serves stateless protocols and
-stateful operators (Scan reads the engine's tables; Resize folds the
-engine's noise counter) alike; in a batched pass a stateless ``apply`` runs
-once under ``torch.func.vmap`` over the stacked slots, and the stateful two
-give a ``batch_apply`` hook (``batchable=False`` marks the reference's
-operators that never run stacked). The flags are the reference's:
+Resizer-placement hints. As in the reference, an operator is either a pure
+protocol, ``protocol(node) -> (prf, *tables) -> table``, which the engine
+may run through its per-operator cache (``Engine(jit_ops=True)``: a CUDA
+graph on the card) and, in a batched pass, once under ``torch.func.vmap``
+over the stacked slots; or a stateful ``engine_apply(engine, node,
+children)`` hook that bypasses the cache (Scan reads the engine's tables;
+Resize folds the engine's noise counter), with a ``batch_apply`` hook for
+the batched pass (``batchable=False`` marks the reference's operators that
+never run stacked). The flags are the reference's:
 ``resizer="internal"`` marks where a placement may insert a Resize,
 ``balloons`` the joins, ``singleton`` a 1-row output, and ``post_reveal``
 derives AVG's quotient from the revealed (sum, cnt) rows. Estimates and
@@ -66,6 +68,7 @@ __all__ = [
     "PlanSchema",
     "register",
     "lookup",
+    "registered_ops",
     "plan_batchable",
     "infer_schema",
     "BYTES",
@@ -120,8 +123,9 @@ def infer_schema(plan: PlanNode, catalog) -> PlanSchema:
 class OperatorDef:
     node_type: Type[PlanNode]
     schema: Callable[[PlanNode, List[PlanSchema], object], PlanSchema]
-    apply: Callable  # (engine, node, children) -> SecretTable
     estimate: Callable[[PlanNode, List[Dict], object], Dict]
+    protocol: Optional[Callable[[PlanNode], Callable]] = None  # node -> (prf, *tables) -> table
+    engine_apply: Optional[Callable] = None  # stateful hook: (engine, node, children) -> table
     render_rel: Optional[Callable] = None
     render_head: Optional[Callable] = None
     render_order: Optional[Callable] = None
@@ -134,6 +138,12 @@ class OperatorDef:
     post_reveal: Optional[Callable] = None  # (node, revealed rows) -> rows
     batchable: bool = True  # may run in the engine's stacked multi-query pass
     batch_apply: Optional[Callable] = None  # stateful batched-execution hook
+
+    def __post_init__(self):
+        if (self.protocol is None) == (self.engine_apply is None):
+            raise ValueError(
+                f"OperatorDef({self.node_type.__name__}) needs a protocol factory or an engine_apply hook"
+            )
 
 
 _REGISTRY: Dict[Type[PlanNode], OperatorDef] = {}
@@ -153,11 +163,16 @@ def lookup(node_type: Type[PlanNode]) -> OperatorDef:
         raise TypeError(f"unregistered plan node {node_type.__name__}") from None
 
 
+def registered_ops() -> Dict[Type[PlanNode], OperatorDef]:
+    return dict(_REGISTRY)
+
+
 def plan_batchable(plan: PlanNode) -> bool:
     """True iff every operator of ``plan`` may run inside the engine's
     stacked multi-query pass (``Engine.execute_batch``); other plans run
-    serially."""
-    if not lookup(type(plan)).batchable:
+    serially. An operator needs a protocol or a ``batch_apply`` hook."""
+    d = lookup(type(plan))
+    if not d.batchable or (d.protocol is None and d.batch_apply is None):
         return False
     return all(plan_batchable(c) for c in plan.children())
 
@@ -250,7 +265,7 @@ def _render_scan(r, node: Scan):
 register(OperatorDef(
     node_type=Scan,
     schema=_scan_schema,
-    apply=lambda eng, node, children: eng.tables[node.table],
+    engine_apply=lambda eng, node, children: eng.tables[node.table],
     # batched pass: every slot reads the same base table, broadcast
     batch_apply=lambda eng, node, children, ctx: eng._batch_scan(node, ctx),
     estimate=_scan_estimate,
@@ -286,7 +301,7 @@ def _render_filter(r, node: Filter):
 register(OperatorDef(
     node_type=Filter,
     schema=_filter_schema,
-    apply=lambda eng, node, children: oblivious_filter(children[0], node.pred, eng.prf),
+    protocol=lambda node: lambda prf, t: oblivious_filter(t, node.pred, prf),
     estimate=_filter_estimate,
     render_rel=_render_filter,
     sql_shape="relational",
@@ -310,7 +325,7 @@ def _project_estimate(node: Project, children, cm) -> Dict:
 register(OperatorDef(
     node_type=Project,
     schema=_project_schema,
-    apply=lambda eng, node, children: children[0].select_columns(node.cols),
+    protocol=lambda node: lambda prf, t: t.select_columns(node.cols),
     estimate=_project_estimate,
     render_head=lambda r, node, schema: (", ".join(r.qual(schema, c) for c in node.cols), None),
     sql_shape="head",
@@ -359,9 +374,8 @@ def _render_join(r, node: Join):
 register(OperatorDef(
     node_type=Join,
     schema=_join_schema,
-    apply=lambda eng, node, children: oblivious_join(
-        children[0], children[1], node.on, eng.prf, theta=node.theta,
-        tile=current_config().join_tile,
+    protocol=lambda node: lambda prf, l, r: oblivious_join(
+        l, r, node.on, prf, theta=node.theta, tile=current_config().join_tile
     ),
     estimate=_join_estimate,
     render_rel=_render_join,
@@ -425,9 +439,8 @@ def _sortmerge_estimate(node: JoinSortMerge, children, cm) -> Dict:
 register(OperatorDef(
     node_type=JoinSortMerge,
     schema=_join_schema,
-    apply=lambda eng, node, children: oblivious_join_sortmerge(
-        children[0], children[1], node.on, eng.prf, theta=node.theta,
-        fanout=node.fanout, build=node.build,
+    protocol=lambda node: lambda prf, l, r: oblivious_join_sortmerge(
+        l, r, node.on, prf, theta=node.theta, fanout=node.fanout, build=node.build
     ),
     estimate=_sortmerge_estimate,
     resizer="internal",
@@ -467,7 +480,7 @@ def _render_groupby_head(r, node: GroupByCount, schema):
 register(OperatorDef(
     node_type=GroupByCount,
     schema=_groupby_schema,
-    apply=lambda eng, node, children: oblivious_groupby_count(children[0], node.keys, eng.prf, node.count_name),
+    protocol=lambda node: lambda prf, t: oblivious_groupby_count(t, node.keys, prf, node.count_name),
     estimate=_groupby_estimate,
     render_head=_render_groupby_head,
     sql_shape="head",
@@ -522,7 +535,7 @@ def _avg_rows(name: str, rows: Dict, keep_parts: bool) -> Dict:
 register(OperatorDef(
     node_type=GroupBySum,
     schema=_groupby_agg_schema(lambda node: [node.name]),
-    apply=lambda eng, node, children: oblivious_groupby_sum(children[0], node.keys, node.col, eng.prf, node.name),
+    protocol=lambda node: lambda prf, t: oblivious_groupby_sum(t, node.keys, node.col, prf, node.name),
     estimate=_groupby_agg_estimate,
     render_head=_render_groupby_agg_head("SUM", "sum"),
     sql_shape="head",
@@ -534,7 +547,7 @@ register(OperatorDef(
     node_type=GroupByAvg,
     batchable=False,
     schema=_groupby_agg_schema(lambda node: [f"{node.name}_sum", f"{node.name}_cnt"]),
-    apply=lambda eng, node, children: oblivious_groupby_avg(children[0], node.keys, node.col, eng.prf, node.name),
+    protocol=lambda node: lambda prf, t: oblivious_groupby_avg(t, node.keys, node.col, prf, node.name),
     estimate=_groupby_agg_estimate,
     render_head=_render_groupby_agg_head("AVG", "avg"),
     sql_shape="head",
@@ -567,7 +580,7 @@ def _render_having(r, node: Having, head_node, schema) -> str:
 register(OperatorDef(
     node_type=Having,
     schema=_having_schema,
-    apply=lambda eng, node, children: oblivious_filter(children[0], node.pred, eng.prf),
+    protocol=lambda node: lambda prf, t: oblivious_filter(t, node.pred, prf),
     estimate=_filter_estimate,
     render_having=_render_having,
     sql_shape="having",
@@ -597,8 +610,8 @@ def _render_order(r, node: OrderBy, head_node, schema) -> str:
 register(OperatorDef(
     node_type=OrderBy,
     schema=_orderby_schema,
-    apply=lambda eng, node, children: oblivious_orderby(
-        children[0], node.col, eng.prf, descending=node.descending, limit=node.limit
+    protocol=lambda node: lambda prf, t: oblivious_orderby(
+        t, node.col, prf, descending=node.descending, limit=node.limit
     ),
     estimate=_orderby_estimate,
     render_order=_render_order,
@@ -620,7 +633,7 @@ def _distinct_estimate(node: Distinct, children, cm) -> Dict:
 register(OperatorDef(
     node_type=Distinct,
     schema=_distinct_schema,
-    apply=lambda eng, node, children: oblivious_distinct(children[0], node.col, eng.prf),
+    protocol=lambda node: lambda prf, t: oblivious_distinct(t, node.col, prf),
     estimate=_distinct_estimate,
     render_head=lambda r, node, schema: (f"DISTINCT {r.qual(schema, node.col)}", None),
     sql_shape="head",
@@ -647,7 +660,7 @@ register(OperatorDef(
     node_type=CountValid,
     batchable=False,
     schema=lambda node, children, catalog: PlanSchema({"cnt": "a"}),
-    apply=lambda eng, node, children: count_valid(children[0], eng.prf),
+    protocol=lambda node: lambda prf, t: count_valid(t, prf),
     estimate=_count_estimate,
     render_head=lambda r, node, schema: ("COUNT(*)", None),
     sql_shape="head",
@@ -659,7 +672,7 @@ register(OperatorDef(
     node_type=CountDistinct,
     batchable=False,
     schema=_count_distinct_schema,
-    apply=lambda eng, node, children: count_distinct(children[0], node.col, eng.prf),
+    protocol=lambda node: lambda prf, t: count_distinct(t, node.col, prf),
     estimate=_count_distinct_estimate,
     render_head=lambda r, node, schema: (f"COUNT(DISTINCT {r.qual(schema, node.col)})", None),
     sql_shape="head",
@@ -707,7 +720,7 @@ register(OperatorDef(
     node_type=Sum,
     batchable=False,
     schema=_aggregate_schema(lambda node: [node.name], "a"),
-    apply=lambda eng, node, children: sum_column(children[0], node.col, eng.prf, node.name),
+    protocol=lambda node: lambda prf, t: sum_column(t, node.col, prf, node.name),
     estimate=_sum_estimate,
     render_head=_render_aggregate_head("SUM", "sum"),
     sql_shape="head",
@@ -719,7 +732,7 @@ register(OperatorDef(
     node_type=Avg,
     batchable=False,
     schema=_aggregate_schema(lambda node: [f"{node.name}_sum", f"{node.name}_cnt"], "a"),
-    apply=lambda eng, node, children: avg_column(children[0], node.col, eng.prf, node.name),
+    protocol=lambda node: lambda prf, t: avg_column(t, node.col, prf, node.name),
     estimate=_avg_estimate,
     render_head=_render_aggregate_head("AVG", "avg"),
     sql_shape="head",
@@ -732,7 +745,7 @@ register(OperatorDef(
     node_type=Min,
     batchable=False,
     schema=_aggregate_schema(lambda node: [node.name], "b"),
-    apply=lambda eng, node, children: min_column(children[0], node.col, eng.prf, node.name),
+    protocol=lambda node: lambda prf, t: min_column(t, node.col, prf, node.name),
     estimate=_minmax_estimate,
     render_head=_render_aggregate_head("MIN", "min"),
     sql_shape="head",
@@ -744,7 +757,7 @@ register(OperatorDef(
     node_type=Max,
     batchable=False,
     schema=_aggregate_schema(lambda node: [node.name], "b"),
-    apply=lambda eng, node, children: max_column(children[0], node.col, eng.prf, node.name),
+    protocol=lambda node: lambda prf, t: max_column(t, node.col, prf, node.name),
     estimate=_minmax_estimate,
     render_head=_render_aggregate_head("MAX", "max"),
     sql_shape="head",
@@ -774,7 +787,7 @@ def _resize_estimate(node: Resize, children, cm) -> Dict:
 register(OperatorDef(
     node_type=Resize,
     schema=lambda node, children, catalog: children[0],
-    apply=_apply_resize,
+    engine_apply=_apply_resize,
     # batched pass: per slot, each with its own noise counter; divergent
     # revealed sizes split the batch downstream
     batch_apply=lambda eng, node, children, ctx: eng._batch_resize(node, children, ctx),

@@ -10,11 +10,13 @@ cost-based join ordering, Resizer placement), runs them on one shared
 submitted query launches each kernel exactly as often as ``Engine.execute``
 of the same compiled plan.
 
-The reference's per-operator jit cache has no port yet (it waits for CUDA
-graphs, ROADMAP.md), so this service leaves out what reads it: the
-``reflex_jit_cache_logical`` gauge and the ``jit_cache`` key of
-:meth:`AnalyticsService.status`. Everything else it exports equals the
-reference's for the same tables, key and SQL sequence.
+``jit_ops=True`` runs the engine's protocol operators through its
+process-wide per-operator cache (CUDA graphs on the card; see
+:mod:`repro_torch.engine.executor`), the reference's serving
+configuration; the ``reflex_jit_cache_logical`` gauge and the ``jit_cache``
+key of :meth:`AnalyticsService.status` read its counters. Everything the
+service exports equals the reference's for the same tables, key and SQL
+sequence.
 
 Two service-level layers sit on top (DESIGN.md §9):
 
@@ -151,7 +153,7 @@ class AnalyticsService:
         placement: str = "cost_based",
         accountant: Optional[PrivacyAccountant] = None,
         key: Optional[torch.Tensor] = None,  # (2,) threefry key; default PRNGKey(0)
-        jit_ops: bool = False,  # raises, as the port's Engine does
+        jit_ops: bool = False,  # the engine's per-operator cache (CUDA graphs)
         plan_cache_size: int = 256,
         reveal_results: bool = True,
         reorder_joins: bool = True,
@@ -201,6 +203,11 @@ class AnalyticsService:
             "reflex_plan_cache_lookups_total",
             "Prepared-statement cache lookups by outcome "
             "(a rebind also counts as a hit)", ("status",),
+        )
+        self._m_jit = m.gauge(
+            "reflex_jit_cache_logical",
+            "Process-wide Engine jit cache counters (logical hits: a K-slot "
+            "batched pass counts K)", ("status",),
         )
         self._m_budget_total = m.gauge(
             "reflex_privacy_budget_total",
@@ -591,6 +598,9 @@ class AnalyticsService:
 
     def _refresh_gauges(self) -> None:
         """Bring point-in-time gauges current before any export."""
+        js = Engine.jit_cache_stats()
+        for k in ("hits", "misses", "size"):
+            self._m_jit.set(js[k], status=k)
         if self.pool is not None:
             ps = self.pool.stats()
             self._m_off_depth.set(ps["depth_bytes"])
@@ -649,6 +659,9 @@ class AnalyticsService:
         return {
             **self.stats,
             "plan_cache": self.cache_stats(),
+            # process-wide: Engine._JIT_CACHE is shared by every Engine, so
+            # these counters span all services in the process
+            "jit_cache": {**Engine.jit_cache_stats(), "scope": "process"},
             "scheduler": self.scheduler.stats,
             "offline": None if self.pool is None else {
                 "mode": self.offline_mode,

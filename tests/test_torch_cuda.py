@@ -834,3 +834,90 @@ def test_lm_entry_points_run_on_cuda_by_default(cuda):
     logits, _ = make_serve_step(cfg)(params, caches, {"tokens": torch.ones((2, 1), dtype=torch.int32, device=cuda)})
     assert bool(torch.isfinite(logits).all()) and int(caches["0"]["idx"][0]) == 1
     assert next(TransformerLM(cfg).parameters()).device.type == "cuda"
+
+
+def test_jit_cache_captures_and_replays_cuda_graphs(cuda):
+    """``Engine(jit_ops=True)`` on the card: each protocol node is captured
+    once as a CUDA graph and replayed with new inputs (another key, another
+    table of the same shapes), each result equal to the CPU's; a result held
+    across the next replay stays unchanged (the replays return clones); and
+    evicting the entries frees their graphs' memory pools."""
+    import gc
+
+    from repro_torch.core import threefry
+    from repro_torch.data import generate_healthlnk
+    from repro_torch.engine import Engine
+    from repro_torch.ops.filter import Predicate
+    from repro_torch.plan.nodes import CountValid, Filter, Scan
+
+    def shares(out):
+        return {c: out.col(c).shares.cpu() for c in out.cols} | {"_valid": out.valid.shares.cpu()}
+
+    def run(device, seed, key, jit=True):
+        tables, _ = generate_healthlnk(n=48, seed=seed, device=device)
+        plan = CountValid(Filter(Scan("diagnoses"), [Predicate("icd9", "eq", 414)]))
+        out, report = Engine(tables, key=threefry.PRNGKey(key), jit_ops=jit, device=device).execute(plan)
+        return shares(out), [(s.node, s.rounds, s.bytes_per_party) for s in report.nodes], out
+
+    Engine._JIT_CACHE.clear()
+    Engine.reset_jit_stats()
+    reset_launch_counts()
+    first, ledger, held = run(cuda, 0, 3)
+    assert launch_counts().get("and_fold", 0) > 0  # the Filter's eq, captured
+    held_copy = shares(held)
+    graphs = [g for e in Engine._JIT_CACHE.values() for g in e.graphs.values()]
+    assert len(graphs) == 2 and all(g.replays == 1 and g.pool_bytes > 0 for g in graphs)
+    cpu = run("cpu", 0, 3, jit=False)
+    assert all(torch.equal(first[k], cpu[0][k]) for k in first) and ledger == cpu[1]
+    for seed, key in ((0, 9), (1, 3)):  # another key, then another table
+        reset_launch_counts()
+        got, got_ledger, _ = run(cuda, seed, key)
+        assert launch_counts().get("and_fold", 0) == 0  # replayed, not launched by the wrapper
+        want, want_ledger, _ = run("cpu", seed, key, jit=False)
+        assert all(torch.equal(got[k], want[k]) for k in got) and got_ledger == want_ledger
+    assert all(g.replays == 3 for g in graphs) and Engine.jit_cache_stats()["misses"] == 2
+    assert all(torch.equal(held_copy[k], shares(held)[k]) for k in held_copy)
+    torch.cuda.synchronize()
+    pools = sum(g.pool_bytes for g in graphs)
+    del graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    Engine._JIT_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert before - torch.cuda.memory_reserved() >= pools
+
+
+def test_jit_cache_pools_stay_under_their_byte_bound(cuda, monkeypatch):
+    """Captures at distinct table sizes (a new entry for each, as a new S
+    gives one) evict the least recently used entries while the pools held
+    exceed the cache's share of the card's memory; each result still
+    equals the CPU's."""
+    from repro_torch.core import threefry
+    from repro_torch.data import generate_healthlnk
+    from repro_torch.engine import Engine
+    from repro_torch.ops.filter import Predicate
+    from repro_torch.plan.nodes import Filter, Scan
+
+    def run(device, n):
+        tables, _ = generate_healthlnk(n=n, seed=0, device=device)
+        out, _ = Engine(tables, key=threefry.PRNGKey(3), jit_ops=True, device=device).execute(
+            Filter(Scan("diagnoses"), [Predicate("icd9", "eq", 414)]))
+        return out.valid.shares.cpu()
+
+    Engine._JIT_CACHE.clear()
+    Engine.reset_jit_stats()
+    assert torch.equal(run(cuda, 48), run("cpu", 48))
+    (entry,) = Engine._JIT_CACHE.values()
+    total = torch.cuda.mem_get_info()[1]
+    # room for two entries of the first one's size
+    monkeypatch.setattr(Engine, "_JIT_POOL_SHARE", 2.5 * entry.pool_bytes / total)
+    budget = int(Engine._JIT_POOL_SHARE * total)
+    for n in (56, 64, 72, 80):
+        assert torch.equal(run(cuda, n), run("cpu", n))
+        held = sum(e.pool_bytes for e in Engine._JIT_CACHE.values())
+        assert held <= budget or len(Engine._JIT_CACHE) == 1
+    assert Engine.jit_cache_stats()["misses"] == 5 and len(Engine._JIT_CACHE) < 5
+    Engine._JIT_CACHE.clear()
+    Engine.reset_jit_stats()

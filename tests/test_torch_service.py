@@ -9,9 +9,11 @@ pool, durable state), and TLap(eps=3) noise, whose budget of two
 observations runs out within the sequence, under the escalating and under
 the refusing accountant. Every submission gives
 the same rows, per-node ledger and S, plan, cache outcome and escalations,
-or the same refusal; afterwards the accountant, the plan cache, the pool
-and ``stats`` agree, and ``render_metrics`` equals the reference's but for
-the jit-cache gauge the port leaves out. A state directory written by
+or the same refusal; afterwards the accountant, the plan cache, the pool,
+``stats``, ``status()`` (its process-wide ``jit_cache`` included) and
+``render_metrics`` (the ``reflex_jit_cache_logical`` gauge included) agree.
+A service with ``jit_ops=True`` runs the engine's per-operator cache and
+equals the reference's jit service. A state directory written by
 ``repro``'s service is read by the port's with the same refusals. The port
 runs on the CPU; every comparison is exact.
 """
@@ -24,6 +26,7 @@ jax = pytest.importorskip("jax")
 
 from repro.core import noise as jnoise  # noqa: E402
 from repro.data import generate_healthlnk as jgenerate  # noqa: E402
+from repro.engine import Engine as JEngine  # noqa: E402
 from repro.service import AnalyticsService as JService  # noqa: E402
 from repro.service import PrivacyAccountant as JAccountant  # noqa: E402
 from repro.service import QueryRefused as JRefused  # noqa: E402
@@ -91,6 +94,9 @@ def runs(request, tmp_path_factory):
     """Both services through one sequence, with durable state and the pool
     on; the provisioner refills after the first submit (an idle window)."""
     name = request.param
+    for eng in (Engine, JEngine):  # the jit counters are process-wide
+        eng._JIT_CACHE.clear()
+        eng.reset_jit_stats()
     jtables, _ = jgenerate(**DATA)
     ttables, plain = generate_healthlnk(device="cpu", **DATA)
     jsvc = JService(jtables, key=jax.random.PRNGKey(9), state_dir=str(tmp_path_factory.mktemp("ref")),
@@ -151,7 +157,6 @@ def test_stats_cache_and_pool_equal_the_reference(runs):
 
 def _status_view(st):
     st = dict(st)
-    st.pop("jit_cache", None)
     prov = dict(st["offline"].pop("provisioner"))
     prov.pop("last_refill_seconds")
     st["offline"]["provisioner"] = prov
@@ -164,19 +169,20 @@ def _status_view(st):
 
 
 def test_status_equals_the_reference_without_the_jit_cache(runs):
+    """``status()`` equals the reference's, its process-wide ``jit_cache``
+    (the three eager sequences leave both caches empty) included. (The name
+    is the one the test had while the port had no jit cache.)"""
     _, tsvc, jsvc, _, _, _ = runs
     port, ref = tsvc.status(), jsvc.status()
-    assert "jit_cache" not in port and "jit_cache" in ref
+    assert port["jit_cache"] == ref["jit_cache"] == {**Engine.jit_cache_stats(), "scope": "process"}
     assert _status_view(port) == _status_view(ref)
 
 
 def _metric_lines(text):
     """Prometheus lines without timing values: a latency histogram keeps its
-    observation count; the jit-cache gauge (the port has none) is dropped."""
+    observation count."""
     keep = []
     for line in text.splitlines():
-        if "reflex_jit_cache_logical" in line:
-            continue
         m = re.match(r"(\w+?)(_bucket|_sum|_count)?(\{.*\})? ", line)
         if m and m.group(1).endswith("_seconds") and m.group(2) in ("_bucket", "_sum"):
             continue
@@ -185,9 +191,12 @@ def _metric_lines(text):
 
 
 def test_render_metrics_equals_the_reference_but_the_jit_gauge(runs):
+    """Every line equals the reference's, the ``reflex_jit_cache_logical``
+    gauge's (hits, misses, size) included. (The name is the one the test had
+    while the port had no jit gauge.)"""
     _, tsvc, jsvc, _, _, _ = runs
     port, ref = tsvc.render_metrics(), jsvc.render_metrics()
-    assert "reflex_jit_cache_logical" not in port and "reflex_jit_cache_logical" in ref
+    assert len([line for line in port.splitlines() if line.startswith("reflex_jit_cache_logical{")]) == 3
     assert _metric_lines(port) == _metric_lines(ref)
     assert set(tsvc.metrics_snapshot()) <= set(jsvc.metrics_snapshot())
 
@@ -261,9 +270,27 @@ def test_service_defaults_to_cuda(data):
 
 
 def test_jit_ops_raises_as_the_engine_does(data):
+    """``jit_ops=True`` runs and equals the reference's jit service: the
+    service runs the engine's per-operator cache, and two submits (a
+    capture, then a replay) equal the reference's, the cache's logical
+    counters included. (The name is the one the test had while the port
+    refused ``jit_ops``.)"""
     tables, _ = data
-    with pytest.raises(NotImplementedError, match="CUDA graphs"):
-        AnalyticsService(tables, jit_ops=True, device="cpu")
+    jtables, _ = jgenerate(**DATA)
+    svc = AnalyticsService(tables, noise=tnoise.NoTrim(), placement="none", jit_ops=True,
+                           key=threefry.PRNGKey(9), device="cpu")
+    jsvc = JService(jtables, noise=jnoise.NoTrim(), placement="none", jit_ops=True, key=jax.random.PRNGKey(9))
+    assert svc.engine.jit_ops
+    for eng in (Engine, JEngine):
+        eng._JIT_CACHE.clear()
+        eng.reset_jit_stats()
+    for _ in range(2):
+        got, want = _drive(svc, "alice", COUNT_325, BudgetRefused), _drive(jsvc, "alice", COUNT_325, JRefused)
+        assert got[0] == want[0]
+        assert np.asarray(got[1].table.col("cnt").shares).view(np.uint32).tolist() == np.asarray(
+            want[1].table.col("cnt").shares).view(np.uint32).tolist()
+        assert svc.status()["jit_cache"] == jsvc.status()["jit_cache"]
+    assert Engine.jit_cache_stats()["hits"] == Engine.jit_cache_stats()["misses"] > 0
 
 
 def test_plan_cache_hits_rebinds_and_shares_plan_objects(data):

@@ -18,6 +18,9 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
    planes and with indices out of range; the fused kernels and
    ``bitonic_swap`` at ragged lane counts and on unaligned planes, the fused
    kernels at the widths the path uses, and ``bit2a`` on a 2-D lane shape);
+   and the PRF's draws ``threefry_bits`` with host and device keys, 1 to 6
+   keys, up to 2^22 + 3 words a key, and its words for ``PRNGKey(0)``
+   against jax.random's;
 2. cross-device: the quickstart plan, ``comorbidity``, ``diag_breakdown``,
    and ``dosage_study`` and ``three_join`` compiled from SQL by the port's
    ``compile_query`` with the sort-merge join forced (n=48, over a catalog
@@ -54,7 +57,8 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
    shape; for the gather, at the largest recorded hop and at one column over
    the largest join's rows, also the direct route, the plan alone and the
    one-pass sector cost, then both routes over hops from 6 to 192 MiB (the
-   size rule) and the two-pass route's chunk size;
+   size rule) and the two-pass route's chunk size; ``threefry_bits`` at the
+   largest draw of the full-size runs, with host and with device keys;
 5. with ``--profile`` only: a ``torch.profiler`` breakdown of device time
    by kernel for one stage of the full-size Distinct's sort (2^23 rows) on
    the fused and on the gate-by-gate path, one join tile, and the largest
@@ -212,9 +216,25 @@ runs these phases; each one fails the run (non-zero exit) on any mismatch:
     miss when S changes), the first against phase 3's eager run with the
     same key (shares, ledger, S), every answer the oracle's. Its replays launch no wrapper, so the kernels
     line's launches do not count them; each graph's recorded launches are
-    printed.
+    printed;
+15. the reference's remaining MPC surface: (a) every Resize after a
+    product join in phase 3's runs (recorded there, no extra work): the
+    gather log holds S rows for each lazy column and nothing larger
+    (``max(gather_log()) == S < n1 n2``), no column leaves the Resize
+    lazy, and the table's bytes before and after the trim; (b)
+    ``dosage_study``'s two filtered HealthLNK tables (n = 8,192 rows each,
+    phase 3's size) joined by ``oblivious_join(lazy=True)`` and by
+    ``lazy=False``, each followed by the same Beta(2,6) Resizer and key:
+    identical S, revealed rows and ledger tally, with each join's bytes,
+    peak memory and seconds, after the same comparison at n = 64 on
+    ``cuda`` and ``cpu`` (identical shares, ledger, S); (c)
+    ``measure_comm`` on ``meta`` tensors against the ledger of the same
+    call executed on the card, for ``lt``, ``eq``, ``a2b`` and ``bit2a``
+    at 2^24 lanes and a 3-hop ``secure_shuffle`` and a bitonic sort at
+    2^16 rows, on both circuit paths, with the seconds of each.
 
-The kernels line's launches sum phases 3, 6, 8, 9 and 10's sort&cut runs;
+The kernels line's launches sum phases 3, 6, 8, 9, 10's sort&cut runs and
+15's joins and Resizes;
 the nested ``"u64"`` object of each kernel with a 64-bit build holds that
 build's error, times and bound from phase 10 and its launches over phase
 10's ring-64 circuits. The lines before the
@@ -275,16 +295,22 @@ KERNELS = {
     "a2b_fused": (CSRC + "a2b_fused.cu", "src/repro/kernels/a2b_fused/a2b_fused.py:78"),
     "bit2a_fused": (CSRC + "a2b_fused.cu", "src/repro/kernels/a2b_fused/a2b_fused.py:101"),
     "bitonic_swap": (CSRC + "bitonic_swap.cu", "src/repro/kernels/bitonic_stage/bitonic_stage.py:41"),
+    # no Pallas kernel: the reference's draw, jax.random.bits, which XLA
+    # lowers to elementwise code on the TPU
+    "threefry_bits": (CSRC + "threefry.cu", "src/repro/core/prf.py:51"),
 }
-GATE_KERNELS = ("rss_gate", "shuffle_gather")  # the gate-by-gate path's
+# the gate-by-gate path's (every path draws its randomness through
+# threefry_bits)
+GATE_KERNELS = ("rss_gate", "shuffle_gather", "threefry_bits")
 FUSED_KERNELS = ("ks_prefix", "and_fold", "a2b_fused", "bit2a_fused", "bitonic_swap")
 # the kernels each golden's fused path launches with Resizers on every
 # internal operator: every plan filters, joins, resizes or sorts through
 # rss_gate, ks_prefix and and_fold; a Resize adds shuffle_gather and
 # a2b_fused; COUNT, SUM, AVG and GroupBy add bit2a_fused; a sort adds
 # bitonic_swap (diag_breakdown's sort has no payload to narrow and no Resize,
-# so it shuffles nothing; the other GroupBys at the root convert no a2b)
-_BASE = ("rss_gate", "ks_prefix", "and_fold")
+# so it shuffles nothing; the other GroupBys at the root convert no a2b); every
+# gate draws its zero sharing through threefry_bits
+_BASE = ("rss_gate", "ks_prefix", "and_fold", "threefry_bits")
 _RESIZED = _BASE + ("shuffle_gather", "a2b_fused")
 PATH_KERNELS = {
     "comorbidity": _RESIZED + ("bit2a_fused", "bitonic_swap"),
@@ -439,6 +465,7 @@ def kernel_phase(dev) -> dict:
     hop_kernel_checks(dev, rng, errs)
     fused_kernel_checks(dev, rng, errs)
     bitonic_kernel_checks(dev, rng, errs)
+    threefry_kernel_checks(dev, errs)
     reset_launch_counts()
     return errs
 
@@ -601,6 +628,42 @@ def bitonic_kernel_checks(dev, rng, errs: dict) -> None:
                 errs["bitonic_swap"] = max(errs["bitonic_swap"], err)
                 del mask, own, other, alpha, got
         print(f"  bitonic_swap N={n:>7}, C = 1/3/9, aligned and unaligned planes  max_abs_err=0")
+
+
+# jax.random.bits(jax.random.PRNGKey(0), (4,), jnp.uint32) under jax 0.9.0
+# (jax_threefry_partitionable=True)
+JAX_BITS_KEY0 = [4070199207, 4202968722, 1427181096, 2012915765]
+
+
+def threefry_kernel_checks(dev, errs: dict) -> None:
+    """``threefry_bits`` against its plain version, bit for bit: host keys
+    (one launch per four) and device keys (one launch), 1 to 6 keys, ragged
+    and large draws; and its words for PRNGKey(0) against jax.random's
+    (``tests/test_torch_threefry.py`` holds the draws against jax on the
+    CPU)."""
+    import torch
+
+    from repro_torch.core import threefry
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.threefry import draw, draw_plain
+
+    for r in (1, 3, 6):
+        keys = torch.stack([threefry.PRNGKey(100 * r + i) for i in range(r)])
+        for n in (1, 4099, (1 << 22) + 3):
+            want = draw_plain(keys, n, dev)
+            for label, k, launches in (("host", keys, -(-r // 4)), ("device", keys.to(dev), 1)):
+                reset_launch_counts()
+                got = draw(k, n, dev)
+                torch.cuda.synchronize()
+                check(launch_counts().get("threefry_bits", 0) == launches,
+                      f"threefry_bits {label} keys R={r} n={n}: launches {launch_counts()}, not {launches}")
+                err = max_abs_err(got, want)
+                check(err == 0, f"threefry_bits {label} keys R={r} n={n} differs from its plain version")
+                errs["threefry_bits"] = max(errs["threefry_bits"], err)
+            del want, got
+        print(f"  threefry_bits R={r} keys, n = 1 / 4099 / {(1 << 22) + 3}, host and device keys  max_abs_err=0")
+    got = (threefry.bits(threefry.PRNGKey(0), (4,), dev).cpu().to(torch.int64) & 0xFFFFFFFF).tolist()
+    check(got == JAX_BITS_KEY0, f"threefry_bits of PRNGKey(0) on the card: {got}, jax.random: {JAX_BITS_KEY0}")
 
 
 # ---------------------------------------------------------------------------
@@ -816,15 +879,43 @@ def cross_device_phase(dev) -> None:
 EAGER_RUNS: dict = {}
 
 
+def recording_resizes(resizes: list):
+    """A ``Resizer.__call__`` that, for an input with lazy columns (a
+    product join's output), resets the gather log before the Resize and
+    records after it: rows in, S, the lazy columns, the gather log, the
+    table's bytes before and after the trim, and the columns it left lazy.
+    Phase 15 (a) reads the records."""
+    from repro_torch.core.resizer import Resizer
+    from repro_torch.ops.table import LazyGather, gather_log, reset_gather_log, table_nbytes
+
+    resize = Resizer.__call__
+
+    def recorded(self, table, *args, **kwargs):
+        lazy = [k for k, c in table.cols.items() if isinstance(c, LazyGather)]
+        if not lazy:
+            return resize(self, table, *args, **kwargs)
+        before = table_nbytes(table)
+        reset_gather_log()
+        out, info = resize(self, table, *args, **kwargs)
+        resizes.append({"n": table.n, "s": info.get("s"), "lazy_cols": len(lazy), "log": gather_log(),
+                        "bytes_before": before, "bytes_after": table_nbytes(out), "left_lazy": out.lazy_names()})
+        return out, info
+
+    return resize, recorded
+
+
 def full_phase(dev, n: int, three_join_n: int, big_n: int) -> dict:
     """The full-size runs, each with its launch counts set to 0 just before
-    it and read just after, and the shape of each shuffle hop it gathers
-    (rows, planes, the columns' widths)."""
+    it and read just after, the shape of each shuffle hop it gathers
+    (rows, planes, the columns' widths) and each Resize after a product
+    join (:func:`recording_resizes`)."""
     import numpy as np
     import torch
 
     import repro_torch.core.shuffle as shuffle
+    import repro_torch.kernels.threefry.ops as tf_ops
     import repro_torch.ops.join_sortmerge as jsm
+    from repro_torch.core.resizer import Resizer
     from repro_torch.data import all_query_plans, generate_healthlnk
 
     data = {}
@@ -862,6 +953,14 @@ def full_phase(dev, n: int, three_join_n: int, big_n: int) -> dict:
         hops.append((index.shape[0], cols[0].shape[0], tuple(c.shape[2] for c in cols)))
         return gather_hop(cols, index)
 
+    # each draw's keys and words per key
+    draws: list = []
+    draw_launch = tf_ops._launch
+
+    def recorded_draw(keys, n, device):
+        draws.append((keys.shape[0], n))
+        return draw_launch(keys, n, device)
+
     # each sort-merge join's union sort and payload gather, timed in place
     phases: list = []
     sort, gather = jsm.bitonic_sort, jsm.apply_secret_perm
@@ -879,13 +978,19 @@ def full_phase(dev, n: int, three_join_n: int, big_n: int) -> dict:
 
         return run
 
+    resizes: list = []
+    resize, recorded_resize = recording_resizes(resizes)
     shuffle.gather_hop = recorded_hop
+    tf_ops._launch = recorded_draw
     jsm.bitonic_sort, jsm.apply_secret_perm = timed(sort, "sort_s"), timed(gather, "gather_s")
+    Resizer.__call__ = recorded_resize
     try:
-        results, outputs, answers = _full_runs(dev, runs, data, hops, phases, n)
+        results, outputs, answers = _full_runs(dev, runs, data, hops, phases, resizes, draws, n)
     finally:
         shuffle.gather_hop = gather_hop
+        tf_ops._launch = draw_launch
         jsm.bitonic_sort, jsm.apply_secret_perm = sort, gather
+        Resizer.__call__ = resize
     for query in ("dosage_study", "comorbidity"):
         (fout, frep), (gout, grep) = outputs[query], outputs[f"{query} gates"]
         check(ledger_rows(frep) == ledger_rows(grep), f"{query}: fused and gate-by-gate ledgers or S differ")
@@ -903,11 +1008,14 @@ def full_phase(dev, n: int, three_join_n: int, big_n: int) -> dict:
     return results
 
 
-def _full_runs(dev, runs: dict, data: dict, hops: list, phases: list, n: int) -> tuple:
+def _full_runs(dev, runs: dict, data: dict, hops: list, phases: list, resizes: list, draws: list,
+               n: int) -> tuple:
     """Each run of ``full_phase``, with ``hops`` filled by the recording
-    ``gather_hop`` and ``phases`` by the timed union sort and payload gather
-    of each sort-merge join; returns the results, the outputs of the runs compared
-    fused and gate by gate, and every run's answer."""
+    ``gather_hop``, ``phases`` by the timed union sort and payload gather
+    of each sort-merge join, ``resizes`` by the recording Resizer and
+    ``draws`` by the recording ``threefry_bits`` launch;
+    returns the results, the outputs of the runs compared fused and gate by
+    gate, and every run's answer."""
     import torch
 
     from repro_torch import RuntimeConfig
@@ -927,6 +1035,8 @@ def _full_runs(dev, runs: dict, data: dict, hops: list, phases: list, n: int) ->
         torch.cuda.synchronize()
         hops.clear()
         phases.clear()
+        resizes.clear()
+        draws.clear()
         reset_launch_counts()
         t0 = time.perf_counter()
         out, report = engine.execute(placed)
@@ -971,6 +1081,8 @@ def _full_runs(dev, runs: dict, data: dict, hops: list, phases: list, n: int) ->
             "nodes": node_rows(report),
             "hops": [[h[0], h[1], list(h[2])] for h in run_hops],
             "joins": joins,
+            "lazy_resizes": list(resizes),
+            "largest_draw": list(max(draws, key=lambda d: d[0] * d[1], default=(0, 0))),
             "result": got if isinstance(got, int) else size,
         }
         if name in ("dosage_study", "dosage_study gates", "comorbidity", "comorbidity gates"):
@@ -1250,6 +1362,10 @@ def _same_result(a, b) -> bool:
             and a.rows.keys() == b.rows.keys() and all(np.array_equal(a.rows[k], b.rows[k]) for k in a.rows))
 
 
+def _without_draws(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if k != "threefry_bits"}
+
+
 def _add(total: dict, launches: dict) -> None:
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
@@ -1317,8 +1433,9 @@ def service_phase(dev, n: int) -> dict:
             got = revealed_answer(query, res.plan, res.table)
             check(got == want, f"service {tenant} {query}: {got} differs from the oracle {want}")
             check(_same_result(res, ref), f"service {tenant} {query}: pool on and off differ")
-            if dev.type == "cuda":
-                check(launches == launches_off, f"service {tenant} {query}: launches differ with the pool off")
+            if dev.type == "cuda":  # the pool serves draws made before the submit: threefry_bits aside
+                check(_without_draws(launches) == _without_draws(launches_off),
+                      f"service {tenant} {query}: launches differ with the pool off")
             run = {"tenant": tenant, "query": query, "sql": sql, "seconds": dt, "seconds_off": dt_off,
                    "hits": p1["hits"] - p0["hits"], "misses": p1["misses"] - p0["misses"],
                    "pool_bytes": p1["depth_bytes"], "cache_hit": res.cache_hit, "launches": launches,
@@ -1721,6 +1838,7 @@ def timing_phase(dev, shapes: dict) -> dict:
     out.update(time_gather(dev, rng, shapes))
     out.update(time_fused(dev, rng, shapes))
     out.update(time_bitonic(dev, rng, shapes))
+    out.update(time_threefry(dev, shapes))
     return out
 
 
@@ -1910,6 +2028,42 @@ def time_bitonic(dev, rng, shapes: dict) -> dict:
     return {"bitonic_swap": [{
         "n": n, "c": c, "bytes": bytes_moved, "ms": ms, "plain_ms": plain_ms, "replaced_route_ms": replaced_ms,
         "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err, "library_ms": None}]}
+
+
+# integer operations a word of threefry-2x32 takes: 20 rounds of add, rotate
+# and XOR, five key injections of two adds, the two input words' adds and the
+# final XOR
+THREEFRY_OPS_PER_WORD = 73
+
+
+def time_threefry(dev, shapes: dict) -> dict:
+    """``threefry_bits`` at the largest draw of the run (its keys, its words
+    a key), with host keys and with device keys, against its plain version.
+    No PyTorch call computes threefry (its generators are Philox and
+    Mersenne twister): no library time."""
+    import torch
+
+    from repro_torch.core import threefry
+    from repro_torch.kernels.threefry import draw, draw_plain
+
+    r, n = shapes["draw"]
+    keys = torch.stack([threefry.PRNGKey(500 + i) for i in range(r)])
+    rows = []
+    for label, k in (("host keys", keys), ("device keys", keys.to(dev))):
+        err = max_abs_err(draw(k, n, dev), draw_plain(keys, n, dev))
+        check(err == 0, f"threefry_bits {label} R={r} n={n} differs from its plain version")
+        ms = median_ms(lambda: draw(k, n, dev))
+        plain_ms = median_ms(lambda: draw_plain(keys, n, dev), PLAIN_REPS)
+        bytes_moved = 4 * r * n  # the words written; the keys are a few bytes
+        ops = THREEFRY_OPS_PER_WORD * r * n
+        bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
+        by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S else "operations"
+        print(f"  threefry_bits {label:<11} R={r} n={n:>9}: {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+              f"{bound_ms:.4f} ms ({by}), {100 * bound_ms / ms:.1f} % of the bound")
+        rows.append({"keys": label, "r": r, "n": r * n, "bytes": bytes_moved, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err, "library_ms": None,
+                     "device_keys": label == "device keys"})
+    return {"threefry_bits": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -2136,7 +2290,10 @@ def ring64_phase(dev, lanes: int = RING64_LANES) -> dict:
             launches = launch_counts()
             reset_launch_counts()
             expect = fused_launches if fuse else {"rss_gate_u64": gate_launches}
-            check(launches == expect or not on_card, f"ring-64 {name} {path}: launches {launches}, expected {expect}")
+            # the draws: 32-bit words, widened, so threefry_bits has no 64-bit build
+            circuit = {k: v for k, v in launches.items() if k != "threefry_bits"}
+            check(circuit == expect and launches.get("threefry_bits", 0) > 0 or not on_card,
+                  f"ring-64 {name} {path}: launches {launches}, expected {expect} and draws")
             _add(total, launches)
             runs[path] = (out, ledger, seconds, launches)
         (fout, fled, fs, fl), (gout, gled, gs, gl) = runs["fused"], runs["gates"]
@@ -3295,6 +3452,7 @@ _LAUNCHERS = {
     "bit2a_fused": ("repro_torch.kernels.a2b_fused.ops", "_bit2a_launch"),
     "bitonic_swap": ("repro_torch.kernels.bitonic_stage.ops", "_launch"),
     "shuffle_gather": ("repro_torch.kernels.shuffle_gather.ops", "_hop_launch"),
+    "threefry_bits": ("repro_torch.kernels.threefry.ops", "_launch"),
 }
 
 
@@ -3304,10 +3462,11 @@ def _plain_of(name: str):
     from repro_torch.kernels.ks_prefix import and_fold_plain, ks_prefix_plain
     from repro_torch.kernels.rss_gate import gate_plain
     from repro_torch.kernels.shuffle_gather import shuffle_gather_plain
+    from repro_torch.kernels.threefry import draw_plain
 
     return {
         "rss_gate": gate_plain, "ks_prefix": ks_prefix_plain, "and_fold": and_fold_plain, "a2b_fused": a2b_plain,
-        "bit2a_fused": bit2a_plain, "bitonic_swap": stage_swap_plain,
+        "bit2a_fused": bit2a_plain, "bitonic_swap": stage_swap_plain, "threefry_bits": draw_plain,
         "shuffle_gather": lambda cols, index: [shuffle_gather_plain(c, index) for c in cols],
     }[name]
 
@@ -3715,6 +3874,210 @@ def jit_phase(dev, card: str, n: int = ROWS_PER_TABLE) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 15. the gather log, the eager join, measure_comm
+# ---------------------------------------------------------------------------
+
+# (b)'s rows per table: phase 3's (67,108,864 product rows)
+LAZY_EAGER_ROWS = ROWS_PER_TABLE
+LAZY_EAGER_CROSS_ROWS = 64
+LAZY_EAGER_KEY = 42
+# the kernels (b)'s joins and Resizes launch on the fused path: the join's
+# equality tree, its valid ANDs, the Resizer's coins and shuffle, and the
+# draws of them all
+LAZY_EAGER_KERNELS = ("rss_gate", "and_fold", "ks_prefix", "a2b_fused", "shuffle_gather", "threefry_bits")
+MEASURE_LANES = RING64_LANES  # phase 4's circuits' lanes
+MEASURE_ROWS = 1 << 16
+
+
+def gather_log_checks(full: dict) -> dict:
+    """(a): phase 3's Resizes after a product join."""
+    out = {}
+    for name, res in full.items():
+        for i, r in enumerate(res.get("lazy_resizes", ())):
+            label = f"{name} Resize {i} (n={res['n']})"
+            check(bool(r["log"]), f"{label}: its {r['lazy_cols']} lazy columns were never gathered")
+            check(max(r["log"]) == r["s"] < r["n"], f"{label}: gather log {sorted(set(r['log']))} against S={r['s']} "
+                                                    f"of {r['n']} product rows")
+            check(not r["left_lazy"], f"{label}: columns {r['left_lazy']} leave the Resize lazy")
+            print(f"  {label}: {r['n']} product rows -> S={r['s']}; {len(r['log'])} gathers of "
+                  f"{sorted(set(r['log']))} rows for {r['lazy_cols']} lazy columns; {r['bytes_before']:,} bytes "
+                  f"before the trim, {r['bytes_after']:,} after")
+            out[label] = r
+    check(bool(out), "phase 3 ran no Resize after a product join")
+    return out
+
+
+def _lazy_eager_sides(dev, n: int):
+    """dosage_study's two filtered HealthLNK tables (n rows each) and the
+    PRF of the join and the Resizer."""
+    from repro_torch.core import threefry
+    from repro_torch.core.prf import setup_prf
+    from repro_torch.data import DOSAGE_325MG, ICD9_CIRCULATORY, MED_ASPIRIN, generate_healthlnk
+    from repro_torch.ops import Predicate, oblivious_filter
+
+    tables, _ = generate_healthlnk(n=n, seed=0, device=dev)
+    prf = setup_prf(threefry.PRNGKey(LAZY_EAGER_KEY))
+    d = oblivious_filter(tables["diagnoses"], [Predicate("icd9", "eq", ICD9_CIRCULATORY)], prf.fold(1))
+    m = oblivious_filter(tables["medications"], [Predicate("med", "eq", MED_ASPIRIN),
+                                                 Predicate("dosage", "eq", DOSAGE_325MG)], prf.fold(2))
+    return d, m, prf
+
+
+def lazy_eager_run(dev, d, m, prf, lazy: bool, shares: bool = False) -> dict:
+    """One join of ``d`` and ``m`` on pid, lazy or eager, then the Beta(2,6)
+    Resizer: seconds, bytes of the joined table, peak memory, launches, the
+    ledger tally, S, the output's true rows and, with ``shares``, its
+    shares on the host."""
+    import torch
+
+    from repro_torch.core import threefry
+    from repro_torch.core.ledger import CommLedger
+    from repro_torch.core.noise import BetaNoise
+    from repro_torch.core.resizer import Resizer, ResizerConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.ops import oblivious_join
+    from repro_torch.ops.table import table_nbytes
+
+    _reset_peak(dev)
+    _sync(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with CommLedger() as led:
+        joined = oblivious_join(d, m, ("pid", "pid"), prf.fold(3), lazy=lazy)
+        _sync(dev)
+        join_s = time.perf_counter() - t0
+        nbytes = table_nbytes(joined)
+        resizer = Resizer(ResizerConfig(noise=BetaNoise(2, 6), addition="parallel"))
+        out, info = resizer(joined, prf.fold(4), threefry.PRNGKey(LAZY_EAGER_KEY + 2))
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    reset_launch_counts()
+    run = {"lazy": lazy, "n_product": joined.n, "join_s": join_s, "seconds": seconds, "join_bytes": nbytes,
+           "peak_gib": _peak_gib(dev), "launches": launches, "tally": led.tally(), "s": info["s"],
+           "shares": share_rows(out) if shares else None, "rows": out.reveal_true_rows()}
+    del joined, out
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return run
+
+
+def _same_rows(a: dict, b: dict) -> bool:
+    return list(a) == list(b) and all((a[k] == b[k]).all() for k in a)
+
+
+def lazy_eager_cross_device(dev, n: int = LAZY_EAGER_CROSS_ROWS) -> None:
+    """(b) at n = 64: each path identical on ``cuda`` and ``cpu``."""
+    import torch
+
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        left, right, prf = _lazy_eager_sides(d, n)
+        for lazy in (True, False):
+            runs[d.type, lazy] = lazy_eager_run(d, left, right, prf, lazy, shares=True)
+    for lazy in (True, False):
+        a, b = runs[dev.type, lazy], runs["cpu", lazy]
+        check(a["tally"] == b["tally"] and a["s"] == b["s"], f"n={n} lazy={lazy}: ledger or S differ across devices")
+        check(_same_rows(a["shares"], b["shares"]), f"n={n} lazy={lazy}: output shares differ across devices")
+    lazy_run, eager_run = runs[dev.type, True], runs[dev.type, False]
+    check(lazy_run["tally"] == eager_run["tally"] and lazy_run["s"] == eager_run["s"]
+          and _same_rows(lazy_run["rows"], eager_run["rows"]), f"n={n}: the lazy and eager paths differ")
+    print(f"  n={n}: lazy and eager join + Resize each identical on {dev.type} and cpu (shares, ledger "
+          f"{lazy_run['tally']}, S={lazy_run['s']}); lazy = eager in S, rows and ledger")
+
+
+def lazy_eager_phase(dev, n: int) -> dict:
+    """(b) at n rows per table."""
+    d, m, prf = _lazy_eager_sides(dev, n)
+    runs = {lazy: lazy_eager_run(dev, d, m, prf, lazy) for lazy in (True, False)}
+    lazy_run, eager_run = runs[True], runs[False]
+    for run in (lazy_run, eager_run):
+        label = "lazy" if run["lazy"] else "eager"
+        missing = [k for k in LAZY_EAGER_KERNELS if not run["launches"].get(k)]
+        if dev.type == "cuda":  # a CPU tensor runs the plain versions and launches nothing
+            check(not missing, f"{label} join + Resize at n={n}: {missing} never launched ({run['launches']})")
+        print(f"  {label}: {d.n} x {m.n} = {run['n_product']} product rows -> S={run['s']}; join {run['join_s']:.3f} s, "
+              f"join + Resize {run['seconds']:.3f} s; joined table {run['join_bytes']:,} bytes; peak "
+              f"{run['peak_gib']:.2f} GiB; ledger {run['tally']}; launches {run['launches']}")
+    check(lazy_run["s"] == eager_run["s"], f"n={n}: S {lazy_run['s']} (lazy) != {eager_run['s']} (eager)")
+    check(lazy_run["tally"] == eager_run["tally"], f"n={n}: the lazy and eager ledgers differ")
+    check(_same_rows(lazy_run["rows"], eager_run["rows"]), f"n={n}: the lazy and eager rows differ")
+    print(f"  n={n}: lazy = eager in S, the {len(next(iter(lazy_run['rows'].values())))} revealed rows and the "
+          f"ledger; the eager join holds {eager_run['join_bytes'] / lazy_run['join_bytes']:.2f}x the lazy one's "
+          f"bytes")
+    launches: dict = {}
+    for run in runs.values():
+        _add(launches, run["launches"])
+    return {"n": n, "launches": launches,
+            "runs": {("lazy" if k else "eager"): {f: v for f, v in r.items() if f not in ("shares", "rows")}
+                     for k, r in runs.items()}}
+
+
+def measure_comm_phase(dev, lanes: int = MEASURE_LANES, rows: int = MEASURE_ROWS) -> dict:
+    """(c): ``measure_comm`` on ``meta`` against the executed ledger."""
+    import numpy as np
+
+    from repro_torch.core import circuits, threefry
+    from repro_torch.core.ledger import CommLedger, measure_comm
+    from repro_torch.core.prf import setup_prf
+    from repro_torch.core.sharing import AShare, BShare
+    from repro_torch.core.shuffle import secure_shuffle
+    from repro_torch.core.sort import bitonic_sort
+    from repro_torch.kernels import override_fusion, reset_launch_counts
+
+    rng = np.random.default_rng(15)
+    prf = setup_prf(threefry.PRNGKey(15))
+    x, y = BShare(words(rng, (3, lanes), dev)), BShare(words(rng, (3, lanes), dev))
+    xa = AShare(words(rng, (3, lanes), dev))
+    cols = {name: BShare(words(rng, (3, rows), dev)) for name in ("k", "v", "w")}
+    cases = {
+        f"lt {lanes}": (lambda a, b: circuits.lt(a, b, prf), (x, y)),
+        f"eq {lanes}": (lambda a, b: circuits.eq(a, b, prf), (x, y)),
+        f"a2b {lanes}": (lambda a: circuits.a2b(a, prf), (xa,)),
+        f"bit2a {lanes}": (lambda a: circuits.bit2a(a, prf), (x,)),
+        f"secure_shuffle {rows} x 3": (lambda c: secure_shuffle(c, prf), (cols,)),
+        f"bitonic_sort {rows} x 3": (lambda c: bitonic_sort(c, "k", prf), (cols,)),
+    }
+    out = {}
+    for fuse in (True, False):
+        path = "fused" if fuse else "gates"
+        with override_fusion(fuse):
+            for name, (fn, args) in cases.items():
+                t0 = time.perf_counter()
+                meta = measure_comm(fn, *args)
+                meta_s = time.perf_counter() - t0
+                _sync(dev)
+                t0 = time.perf_counter()
+                with CommLedger() as led:
+                    fn(*args)
+                _sync(dev)
+                run_s = time.perf_counter() - t0
+                check(meta == led.tally(), f"{name} {path}: measure_comm {meta} != executed {led.tally()}")
+                print(f"  {name} {path}: {meta} on meta in {meta_s:.3f} s = executed on {dev.type} in {run_s:.3f} s")
+                out[f"{name} {path}"] = {"tally": meta, "meta_s": meta_s, "run_s": run_s}
+    reset_launch_counts()
+    return out
+
+
+def surface_phase(dev, full: dict, n: int = LAZY_EAGER_ROWS) -> dict:
+    """Phase 15: (a) the gather log over phase 3's runs, (b) lazy against
+    eager, (c) measure_comm against execution."""
+    t0 = time.perf_counter()
+    print("  (a) the gather log over phase 3's product-join Resizes")
+    resizes = gather_log_checks(full)
+    print(f"  (b) lazy against eager: dosage_study's filtered tables, n={LAZY_EAGER_CROSS_ROWS} on both devices, "
+          f"then n={n}")
+    lazy_eager_cross_device(dev)
+    joins = lazy_eager_phase(dev, n)
+    print("  (c) measure_comm on meta against execution, both circuit paths")
+    measured = measure_comm_phase(dev)
+    seconds = time.perf_counter() - t0
+    print(f"  phase 15 in {seconds:.1f} s")
+    return {"resizes": resizes, "joins": joins, "measure_comm": measured, "launches": joins["launches"],
+            "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # 5. (--profile) device-time breakdown of the two heaviest operators
 # ---------------------------------------------------------------------------
 
@@ -3819,12 +4182,13 @@ def largest_shapes(full: dict) -> dict:
     bitonic sort (Distinct's power-of-two rows; CountDistinct pads its input
     to them), of a Resize's input, of a product join, and of COUNT's bit2a
     (the CountDistinct's sort rows); and Distinct's rows alone, the stage
-    that ``--profile`` traces."""
+    that ``--profile`` traces; and the largest draw (keys, words a key)."""
     def pow2(k: int) -> int:
         return 1 << max(k - 1, 0).bit_length()
 
     sort_rows = join_rows = resize_rows = count_rows = distinct_rows = 1
     hop = (1, 3, (1,))
+    draw = max((tuple(res["largest_draw"]) for res in full.values()), key=lambda d: d[0] * d[1])
     for res in full.values():
         for n, planes, widths in res["hops"]:
             if n * planes * sum(widths) > hop[0] * hop[1] * sum(hop[2]):
@@ -3846,7 +4210,8 @@ def largest_shapes(full: dict) -> dict:
     # narrowed network carries two columns, the key and the row index, and
     # rss_gate's largest call is the gate-by-gate select over them
     return {"gate_lanes": 2 * sort_rows, "sort_rows": sort_rows, "sort_cols": 2, "join_rows": join_rows,
-            "resize_rows": resize_rows, "count_rows": count_rows, "distinct_rows": distinct_rows, "hop": hop}
+            "resize_rows": resize_rows, "count_rows": count_rows, "distinct_rows": distinct_rows, "hop": hop,
+            "draw": draw}
 
 
 def main(argv=None) -> int:
@@ -3953,12 +4318,17 @@ def main(argv=None) -> int:
           f"n={ROWS_PER_TABLE}")
     jit = jit_phase(dev, card)
 
+    print(f"[15] the reference's remaining MPC surface: the gather log, the eager join at n={LAZY_EAGER_ROWS}, "
+          f"measure_comm on meta")
+    surface = surface_phase(dev, full)
+
     # launches on the main paths: phase 3's runs, phase 6's batches, phase
-    # 8's submits and batch, phase 9's networked submits and phase 10's
-    # sort&cut runs; a 64-bit build's, phase 10's ring-64 circuits
+    # 8's submits and batch, phase 9's networked submits, phase 10's
+    # sort&cut runs and phase 15's joins and Resizes; a 64-bit build's,
+    # phase 10's ring-64 circuits
     launches = {k: sum(r["launches"].get(k, 0) for r in full.values()) + batch["launches"].get(k, 0)
                 + stacked["launches"].get(k, 0) + service["launches"].get(k, 0) + runtime["launches"].get(k, 0)
-                + sortcut["launches"].get(k, 0)
+                + sortcut["launches"].get(k, 0) + surface["launches"].get(k, 0)
                 for k in KERNELS}
     summary = {"kernels": []}
     for name, (source, tpu) in KERNELS.items():
@@ -3987,7 +4357,7 @@ def main(argv=None) -> int:
                "n": ROWS_PER_TABLE, "later_n": LATER_ROWS, "three_join_n": THREE_JOIN_ROWS, "big_n": BIG_ROWS, "build_s": build_s, "total_s": total_s, "full": full,
                "timing": timing, "profile": profiled, "batch": [batch, stacked], "tracing": traced, "service": service, "runtime": runtime,
                "ring64": ring64, "wide_timing": wide_timing, "sortcut": sortcut, "lm": lm, "train": train,
-               "sharding": sharded, "jit": jit, "summary": summary}
+               "sharding": sharded, "jit": jit, "surface": surface, "summary": summary}
     print(f"total {total_s:.1f} s")
     if args.out:
         out = Path(args.out)

@@ -23,6 +23,11 @@ mul / AND gate's reshared output, ``reveal_k``); entries logged inside
 ``fused()`` reach the driver as one payload-free entry. The ledger only
 passes the tensor on: without a driver installed (single-process mode)
 nothing reads it.
+
+:func:`measure_comm` is the counterpart of the reference's
+``jax.eval_shape`` under a ledger: it runs a protocol on ``meta`` tensors,
+so only the Python body (and its logging) runs, with no compute and no
+allocation.
 """
 from __future__ import annotations
 
@@ -32,12 +37,16 @@ import threading
 from collections import defaultdict
 from typing import Dict, List, Optional
 
+import torch
+import torch.utils._pytree as pytree
+
 __all__ = [
     "CommEntry",
     "CommLedger",
     "log_comm",
     "active_ledger",
     "fused_scope",
+    "measure_comm",
     "batched_tally",
     "exchange_scope",
     "active_exchange",
@@ -193,3 +202,48 @@ def batched_tally(per_slot: Dict[str, float], slots: int) -> Dict[str, float]:
         "bytes_per_party": per_slot.get("bytes_per_party", 0) * slots,
         "rounds": per_slot.get("rounds", 0),
     }
+
+
+def _to_meta(x):
+    if isinstance(x, torch.Tensor):
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    return x
+
+
+# PyTorch's messages for a read of a meta tensor's values: ``.item()`` (and
+# ``int()``, ``bool()``, ``float()``), a copy out (``.cpu()``, ``.tolist()``,
+# ``.to("cpu")``), ``.numpy()``, and ``nonzero`` (a boolean mask's index),
+# whose size depends on the values
+_HOST_READS = (
+    "Tensor.item() cannot be called on meta tensors",
+    "Cannot copy out of meta tensor",
+    "can't convert meta device type tensor to numpy",
+    "correct data-independent implementation does not exist",
+)
+
+
+def measure_comm(fn, *args, **kwargs) -> Dict[str, int]:
+    """The communication tally of ``fn(*args, **kwargs)`` without compute.
+
+    Every tensor in ``args`` (pytree leaves: share triples, tables and
+    public tensors alike) becomes a ``meta`` tensor of its shape and dtype;
+    ``fn`` runs on them under a :class:`CommLedger`, whose tally is
+    returned. Shapes alone set the cost. The PRF keys (a
+    :class:`~repro_torch.core.prf.PRFSetup` is not a pytree node) stay
+    where they are: key derivation is host arithmetic. A protocol that
+    reads a value on the host (a Resizer's reveal, ``.item()``) cannot run
+    on ``meta`` and raises, as ``jax.eval_shape`` raises on a concrete
+    read; any other error passes through unchanged.
+    """
+    meta_args = pytree.tree_map(_to_meta, args)
+    with CommLedger() as led:
+        try:
+            fn(*meta_args, **kwargs)
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            if not any(m in str(e) for m in _HOST_READS):
+                raise
+            raise RuntimeError(
+                f"measure_comm: {getattr(fn, '__name__', fn)} reads a value on the host, which a meta tensor "
+                f"does not hold ({type(e).__name__}: {e})"
+            ) from e
+    return led.tally()

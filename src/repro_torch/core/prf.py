@@ -106,16 +106,13 @@ def widen(bits: torch.Tensor, ring: Ring) -> torch.Tensor:
 def _draw_bits(prf: PRFSetup, shape: Tuple[int, ...], device, ring: Ring = RING32) -> torch.Tensor:
     if prf.device_keys:
         return widen(threefry.bits_dev(prf.pair_keys, shape), ring)
-    out = torch.empty((3,) + shape, dtype=ring.dtype, device=device)
-    for i, k in enumerate(prf.pair_keys):
-        out[i] = widen(threefry.bits(k, shape, device), ring)
-    return out
+    return widen(threefry.bits_each(prf.pair_keys, shape, device), ring)
 
 
 def _draw_uniform(prf: PRFSetup, shape: Tuple[int, ...], device) -> torch.Tensor:
     if prf.device_keys:
         return threefry.uniform_dev(prf.pair_keys, shape)
-    return torch.stack([threefry.uniform(k, shape, device=device) for k in prf.pair_keys])
+    return threefry.uniform_each(prf.pair_keys, shape, device=device)
 
 
 def setup_prf(key: torch.Tensor) -> PRFSetup:

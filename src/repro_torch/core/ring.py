@@ -24,6 +24,7 @@ __all__ = [
     "RING32",
     "RING64",
     "MASK32",
+    "default_ring",
     "ring_of",
     "ring_named",
     "s32",
@@ -72,6 +73,11 @@ class Ring:
 
 RING32 = Ring(32)
 RING64 = Ring(64)
+
+
+def default_ring() -> Ring:
+    """The ring a sharing takes unless asked for another: ring-32."""
+    return RING32
 
 
 def ring_of(x: torch.Tensor) -> Ring:

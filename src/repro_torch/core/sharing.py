@@ -24,7 +24,7 @@ import torch.utils._pytree as pytree
 from ..kernels.rss_gate import gate
 from . import threefry
 from .ledger import log_comm
-from .prf import PRFSetup, widen, zero_share_unpooled
+from .prf import PRFSetup, rand_replicated, widen, zero_share_add, zero_share_unpooled, zero_share_xor
 from .ring import RING32, Ring, from_numpy, ring_of, srl
 
 __all__ = [
@@ -38,8 +38,19 @@ __all__ = [
     "and_",
     "or_",
     "select",
+    "const_a",
     "const_b",
+    "zeros_a",
+    "zeros_b",
+    "rand_ashare",
+    "rand_bshare",
+    "rand_replicated",
+    "zero_share_add",
+    "zero_share_xor",
+    "NUM_PARTIES",
 ]
+
+NUM_PARTIES = 3
 
 
 def _as_ring(c, device, ring: Ring):
@@ -258,6 +269,30 @@ def or_(x: BShare, y: BShare, prf: PRFSetup) -> BShare:
 def select(cond_mask: BShare, x: BShare, y: BShare, prf: PRFSetup) -> BShare:
     """cond ? x : y, with ``cond_mask`` a full-width mask (see lsb_mask)."""
     return y ^ and_(cond_mask, x ^ y, prf)
+
+
+def rand_ashare(prf: PRFSetup, shape, device, ring: Ring = RING32) -> AShare:
+    """A fresh random arithmetic sharing (no communication)."""
+    return AShare(rand_replicated(prf, shape, device, ring))
+
+
+def rand_bshare(prf: PRFSetup, shape, device, ring: Ring = RING32) -> BShare:
+    """A fresh random boolean sharing (no communication)."""
+    return BShare(rand_replicated(prf, shape, device, ring))
+
+
+def zeros_a(shape, device, ring: Ring = RING32) -> AShare:
+    return AShare(torch.zeros((3,) + tuple(shape), dtype=ring.dtype, device=device))
+
+
+def zeros_b(shape, device, ring: Ring = RING32) -> BShare:
+    return BShare(torch.zeros((3,) + tuple(shape), dtype=ring.dtype, device=device))
+
+
+def const_a(value, shape, device, ring: Ring = RING32) -> AShare:
+    """Trivial (public-constant) arithmetic sharing of ``value`` (an int,
+    numpy array or tensor) broadcast to ``shape``: share 0 carries it."""
+    return zeros_a(shape, device, ring).add_public(value)
 
 
 def const_b(value: torch.Tensor, device) -> BShare:

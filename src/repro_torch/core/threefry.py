@@ -8,16 +8,22 @@ the port carries its own copy of JAX's generator:
   pattern of JAX's ``uint32`` key data). Key derivation (``PRNGKey``,
   ``fold_in``, ``split``) hashes a handful of words, so it runs as plain
   Python integer arithmetic and never touches the device;
-* draws (``bits``, ``uniform``, ``permutation``) run on the ``device`` they
-  are asked for, with the key's two words entering as scalars — no host to
-  device copy, so nothing synchronises the stream.
+* draws (``bits``, ``uniform``, ``permutation``, and ``bits_each`` /
+  ``uniform_each`` for several keys at once) run on the ``device`` they are
+  asked for, with the key's two words entering as scalars — no host to
+  device copy, so nothing synchronises the stream. On the card a draw is one
+  launch of the ``threefry_bits`` kernel (:mod:`repro_torch.kernels.threefry`)
+  for all its keys; on the CPU it runs :func:`_hash` on tensors, the
+  kernel's plain version.
 
 The device-key path (``fold_in_dev``, ``split_dev``, ``bits_dev``,
 ``uniform_dev``, ``permutation_dev``) takes keys as ``(..., 2)`` int32
-tensors on any device and hashes them with tensor operations there, the key
-words broadcast over the leading axes: nothing reads a key on the host, so
-a captured CUDA graph whose key tensor is refilled before each replay draws
-with the new keys. Both paths give the same words for every key and tag.
+tensors on any device and hashes them there (folds and splits with tensor
+operations, draws with ``threefry_bits`` reading the keys on the card), the
+key words broadcast over the leading axes: nothing reads a key on the host,
+so a captured CUDA graph whose key tensor is refilled before each replay
+draws with the new keys. Both paths give the same words for every key and
+tag.
 
 Partitionable layout: element ``i`` of a draw of ``shape`` hashes the 64-bit
 counter ``i`` (row-major) split as ``(hi, lo)`` 32-bit words; ``bits`` is the
@@ -39,7 +45,9 @@ __all__ = [
     "fold_in",
     "split",
     "bits",
+    "bits_each",
     "uniform",
+    "uniform_each",
     "permutation",
     "key_words",
     "make_key",
@@ -128,19 +136,27 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     )
 
 
-def _counters(shape: Tuple[int, ...], device) -> torch.Tensor:
+def _numel(shape: Tuple[int, ...]) -> int:
     numel = math.prod(shape)
     if numel >= 1 << 31:
         raise ValueError(f"draw of {numel} words exceeds the int32 counter range")
-    return torch.arange(numel, dtype=torch.int32, device=device).reshape(shape)
+    return numel
+
+
+def bits_each(keys: torch.Tensor, shape: Tuple[int, ...], device) -> torch.Tensor:
+    """:func:`bits` of every key of an ``(R, 2)`` key tensor on the CPU ->
+    ``(R, *shape)``: one ``threefry_bits`` launch on the card (the plain
+    version on the CPU; an empty tensor on ``meta``, where a draw's shape is
+    all there is)."""
+    from ..kernels.threefry import draw
+
+    shape = tuple(int(s) for s in shape)
+    return draw(keys, _numel(shape), device).reshape((keys.shape[0],) + shape)
 
 
 def bits(key: torch.Tensor, shape: Tuple[int, ...], device) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int32 words on ``device``."""
-    k1, k2 = key_words(key)
-    lo = _counters(tuple(shape), device)
-    b1, b2 = _hash(k1, k2, torch.zeros_like(lo), lo)
-    return b1 ^ b2
+    return bits_each(key.reshape(1, 2), shape, device)[0]
 
 
 def _unit_floats(b: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
@@ -173,6 +189,12 @@ def uniform(
     """``jax.random.uniform(key, shape, float32, minval, maxval)`` (see
     :func:`_unit_floats`)."""
     return _unit_floats(bits(key, shape, device), minval, maxval)
+
+
+def uniform_each(keys: torch.Tensor, shape: Tuple[int, ...] = (), device="cpu") -> torch.Tensor:
+    """:func:`uniform` in [0, 1) of every key of an ``(R, 2)`` key tensor on
+    the CPU -> ``(R, *shape)`` float32."""
+    return _unit_floats(bits_each(keys, shape, device), 0.0, 1.0)
 
 
 def permutation(key: torch.Tensor, n: int, device) -> torch.Tensor:
@@ -215,11 +237,11 @@ def split_dev(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 def bits_dev(keys: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
     """:func:`bits` of every key of a ``(..., 2)`` key tensor -> ``(...,
     *shape)`` int32 words on the keys' device."""
+    from ..kernels.threefry import draw
+
     shape = tuple(int(s) for s in shape)
-    lo = _counters(shape, keys.device)
-    lead = tuple(keys.shape[:-1]) + (1,) * len(shape)
-    b1, b2 = _hash(keys[..., 0].reshape(lead), keys[..., 1].reshape(lead), torch.zeros_like(lo), lo)
-    return b1 ^ b2
+    flat = keys.reshape(-1, 2).contiguous()
+    return draw(flat, _numel(shape), keys.device).reshape(tuple(keys.shape[:-1]) + shape)
 
 
 def uniform_dev(

@@ -1,4 +1,13 @@
-from .healthlnk import generate_healthlnk, plaintext_oracle, revealed_answer
+from .healthlnk import (
+    DIAG_HEART_DISEASE,
+    DOSAGE_325MG,
+    ICD9_CIRCULATORY,
+    ICD9_HEART_414,
+    MED_ASPIRIN,
+    generate_healthlnk,
+    plaintext_oracle,
+    revealed_answer,
+)
 from .pipeline import TokenPipeline
 from .queries import (
     DIALECT_QUERIES,
@@ -12,6 +21,11 @@ from .queries import (
 )
 
 __all__ = [
+    "DIAG_HEART_DISEASE",
+    "DOSAGE_325MG",
+    "ICD9_CIRCULATORY",
+    "ICD9_HEART_414",
+    "MED_ASPIRIN",
     "DIALECT_QUERIES",
     "QUERY_SQL",
     "TokenPipeline",

@@ -15,6 +15,11 @@
 * ``bitonic_stage``  — ``bitonic_swap``, one bitonic sort stage's
                        conditional swap over all columns (the select of
                        every stage on the fused path).
+* ``threefry``       — ``threefry_bits``, the PRF's draws (JAX's
+                       partitionable threefry-2x32), every key's words in
+                       one launch. No TPU kernel corresponds (XLA lowers
+                       the reference's draws to elementwise code), but in
+                       plain PyTorch a draw is about 150 launches.
 
 Each kernel is a CUDA C++ source in ``csrc/`` with a plain C entry point.
 Five of them (``rss_gate``, ``ks_prefix``, ``and_fold``, ``a2b_kernel``,
@@ -36,7 +41,7 @@ processes that start together (the runtime's three party processes) build
 the library once and never link another's half-written object. Each
 wrapper (``rss_gate.gate``, ``shuffle_gather.gather_hop``,
 ``ks_prefix.ks_prefix`` / ``and_fold``, ``a2b_fused.a2b_kernel`` /
-``bit2a_kernel``, ``bitonic_stage.stage_swap``) launches its kernel for a
+``bit2a_kernel``, ``bitonic_stage.stage_swap``, ``threefry.draw``) launches its kernel for a
 CUDA tensor and runs its plain PyTorch version for a CPU tensor; it records one launch in :func:`launch_counts` where it
 launches its kernel, and nowhere else. The counts are kept under a lock:
 the runtime's loopback mesh runs three party engines on threads of one
@@ -88,6 +93,7 @@ __all__ = [
     "override_fusion",
     "record_launch",
     "launch_counts",
+    "total_launches",
     "reset_launch_counts",
     "library",
     "build",
@@ -137,6 +143,10 @@ def record_launch(kind: str) -> None:
 def launch_counts() -> Dict[str, int]:
     with _LAUNCH_LOCK:
         return dict(_LAUNCHES)
+
+
+def total_launches() -> int:
+    return sum(launch_counts().values())
 
 
 def reset_launch_counts() -> None:
@@ -246,6 +256,9 @@ def library() -> ctypes.CDLL:
             # (mask, own, other, alpha, out, c, n, stream)
             lib.bitonic_swap_launch.argtypes = [vp, vp, vp, vp, vp, i64, i64, vp]
             lib.bitonic_swap_launch.restype = i32
+            # (host_words, r_keys, dev_keys, n, out, stream)
+            lib.threefry_bits_launch.argtypes = [ctypes.POINTER(ctypes.c_int), i32, vp, i64, vp, vp]
+            lib.threefry_bits_launch.restype = i32
             # the ring-64 builds take the same arguments as their ring-32 entries
             for fn in ("rss_gate_launch", "ks_prefix_launch", "and_fold_launch", "a2b_launch",
                        "bit2a_launch"):
@@ -292,8 +305,8 @@ def check_lanes(name: str, planes, alpha, words: int) -> None:
         raise TypeError(f"{name} needs int32 or int64 ring words of one ring, got {dtypes}")
     if any(t.device != alpha.device for t in planes):
         raise ValueError(f"{name} operands lie on different devices")
-    if alpha.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cuda or cpu, not {alpha.device}")
+    if alpha.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{name} runs on cuda, cpu or meta, not {alpha.device}")
 
 
 def launch_entry(name: str, t: torch.Tensor):

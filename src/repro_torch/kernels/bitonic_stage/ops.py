@@ -57,8 +57,8 @@ def stage_swap(mask: torch.Tensor, own: torch.Tensor, other: torch.Tensor, alpha
         raise ValueError("bitonic_swap operands lie on different devices")
     if own.device.type == "cpu":
         return stage_swap_plain(mask, own, other, alpha)
-    if own.device.type != "cuda":
-        raise ValueError(f"bitonic_swap runs on cuda or cpu, not {own.device}")
+    if own.device.type not in ("cuda", "meta"):
+        raise ValueError(f"bitonic_swap runs on cuda, cpu or meta, not {own.device}")
     return _stage_swap_op(mask, own, other, alpha)
 
 

@@ -48,8 +48,8 @@ def gate(xs: torch.Tensor, ys: torch.Tensor, alpha: torch.Tensor, boolean: bool)
         raise ValueError("rss_gate operands lie on different devices")
     if xs.device.type == "cpu":
         return gate_plain(xs, ys, alpha, boolean)
-    if xs.device.type != "cuda":
-        raise ValueError(f"rss_gate runs on cuda or cpu, not {xs.device}")
+    if xs.device.type not in ("cuda", "meta"):
+        raise ValueError(f"rss_gate runs on cuda, cpu or meta, not {xs.device}")
     return _gate_op(xs, ys, alpha, boolean)
 
 

@@ -101,10 +101,10 @@ def shuffle_gather_plain(planes: torch.Tensor, perm: torch.Tensor) -> torch.Tens
     return torch.where(inside.view(1, n, 1), rows, 0)
 
 
-def _check_hop(name: str, cols: Sequence[torch.Tensor], index: torch.Tensor) -> int:
+def _check_hop(name: str, cols: Sequence[torch.Tensor], index: torch.Tensor, devices=("cpu", "cuda")) -> int:
     """Raise unless ``cols`` are ``(P, N, W)`` int32 columns of one P and N
     with contiguous words, and ``index`` an ``(N,)`` int64 tensor on their
-    device (cuda or cpu), N < 2^31. Returns P."""
+    device (one of ``devices``), N < 2^31. Returns P."""
     if index.dim() != 1 or not cols:
         raise ValueError(f"{name} needs (P, N, W) columns and an (N,) index, got {len(cols)} columns "
                          f"and {tuple(index.shape)}")
@@ -120,8 +120,8 @@ def _check_hop(name: str, cols: Sequence[torch.Tensor], index: torch.Tensor) -> 
                         f"shares, so it has no 64-bit build (ROADMAP.md, Queue 1, step 5)")
     if any(c.device != index.device for c in cols):
         raise ValueError(f"{name} operands lie on different devices")
-    if index.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cuda or cpu, not {index.device}")
+    if index.device.type not in devices:
+        raise ValueError(f"{name} runs on {' or '.join(devices)}, not {index.device}")
     return cols[0].shape[0]
 
 
@@ -147,7 +147,7 @@ def gather_hop(cols: Sequence[torch.Tensor], index: torch.Tensor) -> List[torch.
     under ``vmap`` once for all slots; on a CPU tensor it runs
     :func:`shuffle_gather_plain` per column. Outputs are contiguous.
     """
-    _check_hop("gather_hop", cols, index)
+    _check_hop("gather_hop", cols, index, ("cpu", "cuda", "meta"))
     if index.device.type == "cpu":
         return [shuffle_gather_plain(c, index) for c in cols]
     return _gather_hop_op(list(cols), index)

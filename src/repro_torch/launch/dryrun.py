@@ -23,9 +23,11 @@ For every cell:
     that ``launch/render_experiments.py`` renders into ``ROOFLINE_TORCH.md``.
 
 The port walks the layer groups in a Python loop (``scan_layers`` is a
-no-op), so the counter sees every layer of the full depth; the reference's
-1-group / 2-group extrapolation, which exists because ``lax.scan`` hides the
-body's cost from XLA's cost analysis, is not needed.
+no-op), so the counter sees every layer of the full depth and ``run_cell``
+needs no extrapolation. The reference's 1-group / 2-group extrapolation
+(which exists because ``lax.scan`` hides the body's cost from XLA's cost
+analysis) is kept as :func:`extrapolated_costs`: on a depth-homogeneous
+stack it equals the full-depth count.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun                      # all cells
@@ -62,6 +64,8 @@ from .roofline import (
     memory_analysis_of,
     model_flops_for,
 )
+
+ARTIFACT = os.path.join(os.path.dirname(__file__), "..", "..", "..", "artifacts")
 
 
 @contextlib.contextmanager
@@ -102,6 +106,48 @@ def count_step(step, args) -> StepCounter:
     with meta_equal(), sharded_region(True), StepCounter() as counter:
         step(*args)
     return counter
+
+
+def _measure(arch, shape_name, mesh, n_layers, opt_overrides) -> Dict:
+    """The counted costs of the cell cut to ``n_layers`` layers."""
+    ov = dict(opt_overrides or {})
+    ov["n_layers"] = n_layers
+    _, step, args = build_cell(arch, shape_name, mesh, ov)
+    counter = count_step(step, args)
+    ca = cost_analysis_of(counter)
+    coll = counter.collectives
+    return {
+        "flops": float(ca["flops"]),
+        "bytes": float(ca["bytes accessed"]),
+        "coll_bytes": float(coll.total_bytes),
+        "coll_by_kind": dict(coll.bytes_by_kind),
+        "coll_counts": dict(coll.count_by_kind),
+    }
+
+
+def extrapolated_costs(arch, shape_name, mesh, opt_overrides=None) -> Dict:
+    """One device's costs of the cell at full depth, extrapolated linearly
+    from counts at one and two pattern groups, as the reference does:
+    ``total = (c2 - c1) * groups + (2 c1 - c2)``, each term floored at 0.
+    The depth is ``opt_overrides``' ``n_layers`` where it sets one."""
+    cfg = get_config(arch)
+    if opt_overrides:
+        cfg = dataclasses.replace(cfg, **opt_overrides)
+    period = cfg.pattern_period
+    c1 = _measure(arch, shape_name, mesh, period, opt_overrides)
+    c2 = _measure(arch, shape_name, mesh, 2 * period, opt_overrides)
+    g = cfg.n_layers // period
+
+    def lin(a, b):
+        return max(b - a, 0) * g + max(2 * a - b, 0)
+
+    return {
+        "flops": lin(c1["flops"], c2["flops"]),
+        "bytes": lin(c1["bytes"], c2["bytes"]),
+        "coll_bytes": lin(c1["coll_bytes"], c2["coll_bytes"]),
+        "coll_by_kind": {k: lin(c1["coll_by_kind"][k], c2["coll_by_kind"][k]) for k in c1["coll_by_kind"]},
+        "coll_counts": {k: lin(c1["coll_counts"][k], c2["coll_counts"][k]) for k in c1["coll_counts"]},
+    }
 
 
 def run_cell(
@@ -168,7 +214,7 @@ def main(argv=None) -> None:
     ap.add_argument("--shape", default=None)
     ap.add_argument("--single-pod-only", action="store_true")
     ap.add_argument("--multi-pod-only", action="store_true")
-    ap.add_argument("--out", default="artifacts/dryrun_torch.json")
+    ap.add_argument("--out", default=os.path.join(ARTIFACT, "dryrun_torch.json"))
     ap.add_argument("--append", action="store_true")
     args = ap.parse_args(argv)
 

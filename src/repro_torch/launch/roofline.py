@@ -29,6 +29,11 @@ device's, times ``chips``, as the reference scales XLA's per-device costs:
   group runs it as an all-gather and a chunk, and the counter records the
   all-to-all NCCL would issue.
 
+The reference's text parsers, :func:`shape_bytes` and
+:func:`parse_collectives`, are kept as the port's own copy: they read an
+XLA HLO module's text (for instance one the reference's dry-run wrote), not
+a step the port ran.
+
 MODEL_FLOPS (the "useful" compute) = 6*N*D for training (N = active params,
 D = tokens) and 2*N*B for one decode token; the ratio MODEL_FLOPS/FLOPs
 exposes remat recompute and dispatch/padding waste.
@@ -37,6 +42,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import re
+import sys
 from typing import Dict, Optional
 
 import torch
@@ -106,6 +113,64 @@ class CollectiveStats:
         return sum(self.bytes_by_kind.values())
 
 
+_DTYPE_BYTES = {
+    "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "bf16": 2, "f16": 2,
+    "s32": 4, "u32": 4, "f32": 4, "s64": 8, "u64": 8, "f64": 8, "c64": 8,
+    "token": 0, "s4": 1, "u4": 1, "f8e4m3fn": 1, "f8e5m2": 1,
+}
+_SHAPE_RE = re.compile(r"([a-z0-9]+)\[([0-9,]*)\]")
+_INSTR_RE = re.compile(r"^\s*(?:ROOT\s+)?([%\w.\-]+)\s*=\s*(.+)$")
+_COLLECTIVE_RE = re.compile(r"\s(" + "|".join(COLLECTIVES) + r")(-start)?\(([^)]*)\)")
+
+
+def shape_bytes(shape_str: str) -> int:
+    """Bytes of one HLO shape string (a tuple's are summed)."""
+    total = 0
+    for dt, dims in _SHAPE_RE.findall(shape_str):
+        if dt not in _DTYPE_BYTES:
+            continue
+        n = 1
+        for d in dims.split(","):
+            if d:
+                n *= int(d)
+        total += n * _DTYPE_BYTES[dt]
+    return total
+
+
+def parse_collectives(hlo_text: str) -> CollectiveStats:
+    """Operand bytes and counts of every collective in an HLO module's
+    text, by kind: a first pass maps each instruction's name to its result
+    shape, a second resolves each collective's operands (a bare name, or an
+    operand typed inline). An async pair counts at its ``-start``."""
+    shapes: Dict[str, str] = {}
+    lines = hlo_text.splitlines()
+    for ln in lines:
+        m = _INSTR_RE.match(ln)
+        if m:
+            name, rhs = m.groups()
+            sp = rhs.find(" ")
+            shapes[name.lstrip("%")] = rhs[: sp if sp > 0 else len(rhs)]
+    bytes_by = {k: 0 for k in COLLECTIVES}
+    count_by = {k: 0 for k in COLLECTIVES}
+    for ln in lines:
+        if "-done(" in ln:
+            continue
+        m = _COLLECTIVE_RE.search(ln)
+        if not m:
+            continue
+        kind, _, operands = m.groups()
+        total = 0
+        for op in operands.split(","):
+            head = op.strip().lstrip("%").split(" ")[0]
+            if _SHAPE_RE.search(head):
+                total += shape_bytes(head)
+            elif head in shapes:
+                total += shape_bytes(shapes[head])
+        count_by[kind] += 1
+        bytes_by[kind] += total
+    return CollectiveStats(bytes_by, count_by)
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -114,11 +179,26 @@ def _tensors(tree):
     return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
 
+def _in_sharding_propagation() -> bool:
+    """True while DTensor's sharding propagation runs. The first time it
+    meets an operator's signature it works out the strategy, some of it by
+    running operations on ``meta`` tensors; later meetings hit its cache. Its
+    operations are not the step's, and counting them would make a count
+    depend on what ran before it in the process."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_name == "propagate_op_sharding_non_cached":
+            return True
+        f = f.f_back
+    return False
+
+
 class StepCounter(TorchDispatchMode):
     """Counts one device's FLOPs, bytes and collectives while active (see
     the module docstring). Operations on DTensors are passed on to DTensor,
     so the counter sees the local operations they become; DTensor's own
-    shape inference (on fake tensors) is not counted."""
+    shape inference (on fake tensors) and sharding propagation are not
+    counted, so a count is the same whatever ran before it."""
 
     def __init__(self):
         super().__init__()
@@ -173,8 +253,8 @@ class StepCounter(TorchDispatchMode):
         if any(type(t) is not torch.Tensor and not isinstance(t, (torch.nn.Parameter, FakeTensor)) for t in flat):
             return NotImplemented  # a DTensor: count the local operations it issues
         out = func(*args, **kwargs)
-        if any(isinstance(t, FakeTensor) for t in flat + _tensors(out)):
-            return out  # DTensor's shape inference
+        if any(isinstance(t, FakeTensor) for t in flat + _tensors(out)) or _in_sharding_propagation():
+            return out  # DTensor's shape inference and sharding propagation
         name = func._schema.name.split("::")[-1]
         if name in _NOT_COUNTED:
             return out

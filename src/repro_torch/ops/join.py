@@ -6,7 +6,10 @@ is computed at the product size, tile by tile (``prf.fold(500).fold(t0 //
 tile)`` per tile), gathering the base key / valid columns through the public
 product-layout index maps; payload columns stay :class:`LazyGather` views
 until the next Resizer keeps S rows. The ledger logs one product-wide circuit
-(tiles share rounds). A port of ``repro.ops.join``'s lazy path.
+(tiles share rounds). ``lazy=False`` keeps the expand-everything path, the
+paper's baseline for the lazy one: every payload column is expanded to
+N1 x N2 rows before any trim, and ``valid`` is one product-wide circuit; its
+ledger equals the lazy path's. A port of ``repro.ops.join``.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..config import DEFAULT_JOIN_TILE
+from ..config import current_config
 from ..core.circuits import and_bit, eq, le
 from ..core.ledger import fused_scope
 from ..core.prf import PRFSetup
@@ -47,16 +50,20 @@ def oblivious_join(
     on: Tuple[str, str],
     prf: PRFSetup,
     theta: Optional[Tuple[str, str, str]] = None,
-    tile: int = DEFAULT_JOIN_TILE,
+    lazy: bool = True,
+    tile: Optional[int] = None,
 ) -> SecretTable:
     """Equi-join ``left.on[0] == right.on[1]``; output size = n1 * n2.
 
     ``theta``: optional extra condition (left_col, op, right_col) with op in
-    {"le", "eq"}. ``tile``: product-grid rows per valid-computation tile.
+    {"le", "eq"}. ``tile``: product-grid rows per valid-computation tile of
+    the lazy path, default ``RuntimeConfig.join_tile``.
     """
+    if not lazy:
+        return _eager_join(left, right, on, prf, theta)
     n1, n2 = left.n, right.n
     total = n1 * n2
-    tile = max(1, tile)
+    tile = max(1, tile if tile is not None else current_config().join_tile)
     lk, rk = on
     device = left.device
 
@@ -105,4 +112,49 @@ def oblivious_join(
         cols[name] = _as_lazy(col, li)
     for name, col in right.cols.items():
         cols[_disambiguate(cols, name)] = _as_lazy(col, ri)
+    return SecretTable(cols, valid)
+
+
+def _eager_join(
+    left: SecretTable,
+    right: SecretTable,
+    on: Tuple[str, str],
+    prf: PRFSetup,
+    theta: Optional[Tuple[str, str, str]] = None,
+) -> SecretTable:
+    """The expand-everything join: every payload column is materialized at
+    the full N1 x N2 size before any trim."""
+    n1, n2 = left.n, right.n
+    lk, rk = on
+
+    # row r = (i * n2 + j)
+    def expand_left(col):
+        return col.map_shares(lambda s: s.repeat_interleave(n2, dim=1))
+
+    def expand_right(col):
+        return col.map_shares(lambda s: s.repeat((1, n1) + (1,) * (s.dim() - 2)))
+
+    cols = {}
+    for name in left.cols:
+        cols[name] = expand_left(left.col(name))
+    for name in right.cols:
+        cols[_disambiguate(cols, name)] = expand_right(right.col(name))
+
+    lkey = expand_left(left.bshare_col(lk, prf))
+    rkey = expand_right(right.bshare_col(rk, prf))
+    match = eq(lkey, rkey, prf.fold(501))
+    both = and_bit(expand_left(left.valid), expand_right(right.valid), prf.fold(502))
+    valid = and_bit(both, match, prf.fold(503))
+
+    if theta is not None:
+        tcol_l, op, tcol_r = theta
+        xl = expand_left(left.bshare_col(tcol_l, prf))
+        xr = expand_right(right.bshare_col(tcol_r, prf))
+        if op == "le":
+            extra = le(xl, xr, prf.fold(504))
+        elif op == "eq":
+            extra = eq(xl, xr, prf.fold(504))
+        else:
+            raise ValueError(f"unsupported theta op {op}")
+        valid = and_bit(valid, extra, prf.fold(505))
     return SecretTable(cols, valid)

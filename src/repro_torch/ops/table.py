@@ -6,11 +6,21 @@ is the oblivious size. A column may also be a :class:`LazyGather`, a deferred
 row-gather view ``value = base[index]`` with a public index map (the lazy
 join's payload), materialized on first direct access or gathered for the
 kept rows only by the next Resizer. A port of ``repro.ops.table``.
+
+Every physical gather realized from a :class:`LazyGather` records its output
+row count in a thread-local, bounded log (:func:`gather_log`): the tests hold
+the guarantee that no payload is expanded at the product size before the
+trim, and :func:`table_nbytes` gives a table's physical bytes. Under
+``Engine(jit_ops=True)`` the log records what the protocol body realizes
+while a node is captured (the counterpart of the reference's trace-time
+record); a graph's replay realizes the same rows without logging them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+import threading
+from collections import deque
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -25,7 +35,29 @@ from ..core.sharing import AShare, BShare, reveal_a, reveal_b, share_b
 
 Share = Union[AShare, BShare]
 
-__all__ = ["SecretTable", "LazyGather"]
+__all__ = ["SecretTable", "LazyGather", "gather_log", "reset_gather_log", "table_nbytes"]
+
+
+# bounded (a serving session materializes lazy columns on every query) and
+# thread-local (concurrent engines must not interleave)
+_GATHER_LOG_MAX = 4096
+_GATHER_STATE = threading.local()
+
+
+def _gather_log() -> deque:
+    if not hasattr(_GATHER_STATE, "log"):
+        _GATHER_STATE.log = deque(maxlen=_GATHER_LOG_MAX)
+    return _GATHER_STATE.log
+
+
+def gather_log() -> List[int]:
+    """The output row counts of this thread's gathers from lazy columns,
+    oldest first (the last 4,096)."""
+    return list(_gather_log())
+
+
+def reset_gather_log() -> None:
+    _gather_log().clear()
 
 
 @dataclasses.dataclass
@@ -62,16 +94,51 @@ class LazyGather:
 
     def gather(self, rows: torch.Tensor) -> Share:
         """Materialize only the given output rows: ``base[index[rows]]``."""
-        return self.base.take(self.index[rows], axis=0)
+        idx = self.index[rows]
+        _gather_log().append(int(idx.shape[0]))
+        return self.base.take(idx, axis=0)
 
     def materialize(self) -> Share:
+        _gather_log().append(int(self.index.shape[0]))
         return self.base.take(self.index, axis=0)
 
     def pad_rows(self, n_rows: int) -> Share:
         return self.materialize().pad_rows(n_rows)
 
+    def nbytes(self) -> int:
+        """Backing-store footprint: base shares + public index map (int64
+        here, twice the reference's int32 map)."""
+        return self.base.shares.nbytes + self.index.nbytes
+
 
 Column = Union[AShare, BShare, LazyGather]
+
+
+def table_nbytes(table: "SecretTable") -> int:
+    """Physical bytes held by a table (share tensors + lazy index maps).
+    Each storage counts once, whole: the product-layout index map that
+    every LazyGather of a join side views, or any two views of one buffer.
+    The share bytes equal the reference's; an index map holds int64 words,
+    twice the reference's int32."""
+    seen = set()
+    total = 0
+
+    def add(t: torch.Tensor) -> None:
+        nonlocal total
+        storage = t.untyped_storage()
+        key = (t.device, storage.data_ptr()) if storage.data_ptr() else id(t)
+        if key not in seen:
+            seen.add(key)
+            total += storage.nbytes()
+
+    add(table.valid.shares)
+    for c in table.cols.values():
+        if isinstance(c, LazyGather):
+            add(c.base.shares)
+            add(c.index)
+        else:
+            add(c.shares)
+    return total
 
 
 @dataclasses.dataclass
@@ -93,6 +160,9 @@ class SecretTable:
             {k: v.take(idx, axis=0) for k, v in self.cols.items()},
             self.valid.take(idx, axis=0),
         )
+
+    def lazy_names(self) -> List[str]:
+        return [k for k, v in self.cols.items() if isinstance(v, LazyGather)]
 
     def select_columns(self, names) -> "SecretTable":
         """Keep only the named columns (a local projection)."""

@@ -66,6 +66,7 @@ from .nodes import (
 __all__ = [
     "OperatorDef",
     "PlanSchema",
+    "SchemaError",
     "register",
     "lookup",
     "registered_ops",
@@ -77,6 +78,9 @@ __all__ = [
     "resizer_bytes",
     "sortmerge_join_bytes",
 ]
+
+# the reference's name for the schema error (a ValueError)
+SchemaError = PlanSchemaError
 
 
 @dataclasses.dataclass

@@ -16,7 +16,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from ..models import decode_step, forward
-from ..models.lm import _apply_block, _embed_inputs, _group, _head, tree_map
+from ..models.lm import _apply_block, _embed_inputs, _group, _head, apply_norm, tree_map  # noqa: F401
 
 __all__ = ["prefill", "make_prefill_step", "make_serve_step"]
 

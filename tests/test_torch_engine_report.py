@@ -121,11 +121,10 @@ def test_spans_carry_only_public_values():
         redact.assert_emittable(s.attrs)
 
 
-def test_jit_ops_is_refused():
+def test_jit_ops_runs_and_equals_the_reference():
     """``jit_ops=True`` runs and equals the reference's jit engine: a
     capture and a replay through the per-operator cache give the reference's
-    jit report (seconds zeroed), summary and revealed sizes, and its shares.
-    (The name is the one the test had while the port refused ``jit_ops``.)"""
+    jit report (seconds zeroed), summary and revealed sizes, and its shares."""
     small = dict(n=8, seed=3, aspirin_frac=0.4, icd_heart_frac=0.3)
     jtables, _ = jgenerate(**small)
     ttables, _ = tgenerate(**small, device="cpu")

@@ -80,6 +80,15 @@ def _t(a):
     return from_numpy(a, "cpu")
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor on a device the wrappers have no route for (neither cpu,
+    cuda nor meta)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_shift_schedules_equal_the_reference():
     for width in range(1, 65):
         assert ks_shifts(width) == jks_shifts(width)
@@ -243,4 +252,8 @@ def test_wrappers_raise_on_bad_input():
     with pytest.raises(ValueError):  # lanes not flattened
         a2b_kernel(x.view(3, 2, 4), torch.zeros((3, 22, 8), dtype=torch.int32), ks_shifts(32))
     with pytest.raises(ValueError):
-        bit2a_kernel(x.to("meta"), torch.zeros((3, 2, 8), dtype=torch.int32, device="meta"))
+        bit2a_kernel(x.as_subclass(_Elsewhere), torch.zeros((3, 2, 8), dtype=torch.int32).as_subclass(_Elsewhere))
+    # meta (measure_comm) gives the output's shape and launches nothing
+    reset_launch_counts()
+    out = bit2a_kernel(x.to("meta"), torch.zeros((3, 2, 8), dtype=torch.int32, device="meta"))
+    assert out.device.type == "meta" and out.shape == x.shape and not launch_counts()

@@ -127,6 +127,15 @@ def test_gather_plan_plain_layout(n, chunk_rows, tile_rows):
     assert torch.equal(src, perm[dst])
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor on a device the wrappers have no route for (neither cpu,
+    cuda nor meta)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_two_pass_plain_strided_views():
     # columns sliced from one stacked tensor: row stride 3, offsets 0..2
     rng = np.random.default_rng(5)
@@ -172,7 +181,11 @@ def test_gather_hop_checks_its_inputs():
     with pytest.raises(ValueError):
         gather_hop([], torch.arange(8))
     with pytest.raises(ValueError):
-        gather_hop([x.to("meta")], torch.arange(8, device="meta"))
+        gather_hop([x.as_subclass(_Elsewhere)], torch.arange(8).as_subclass(_Elsewhere))
+    # meta (measure_comm) gives the outputs' shapes and launches nothing
+    reset_launch_counts()
+    (out,) = gather_hop([x.to("meta")], torch.arange(8, device="meta"))
+    assert out.device.type == "meta" and out.shape == x.shape and not launch_counts()
     big = torch.empty((3, 2**31, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         gather_hop([big], torch.empty(2**31, dtype=torch.int64, device="meta"))

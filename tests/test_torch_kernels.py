@@ -77,6 +77,15 @@ def test_shuffle_gather_plain_equals_oracle_and_pallas(n, c):
         assert (got[p] == np.asarray(jgather_rows(table, jperm))).all()
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor on a device the wrappers have no route for (neither cpu,
+    cuda nor meta)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_shuffle_gather_out_of_range_rows_read_zero():
     # the kernel's contract for a malformed index, which the plain version
     # (the CPU path) shares: the row comes out as zeros, nothing raises
@@ -101,7 +110,11 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(TypeError):
         gate(x.to(torch.int16), x.to(torch.int16), x.to(torch.int16), True)
     with pytest.raises(ValueError):
-        gate(x.to("meta"), x.to("meta"), x.to("meta"), True)
+        gate(*(x.as_subclass(_Elsewhere),) * 3, True)
+    # meta (measure_comm) gives the output's shape and launches nothing
+    reset_launch_counts()
+    out = gate(x.to("meta"), x.to("meta"), x.to("meta"), True)
+    assert out.device.type == "meta" and out.shape == x.shape and not launch_counts()
     with pytest.raises(TypeError):
         shuffle_gather(x.view(3, 8, 1), torch.arange(8, dtype=torch.int32))
     with pytest.raises(ValueError):

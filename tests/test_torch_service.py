@@ -168,10 +168,9 @@ def _status_view(st):
     return st
 
 
-def test_status_equals_the_reference_without_the_jit_cache(runs):
+def test_status_equals_the_reference_with_the_jit_cache(runs):
     """``status()`` equals the reference's, its process-wide ``jit_cache``
-    (the three eager sequences leave both caches empty) included. (The name
-    is the one the test had while the port had no jit cache.)"""
+    (the three eager sequences leave both caches empty) included."""
     _, tsvc, jsvc, _, _, _ = runs
     port, ref = tsvc.status(), jsvc.status()
     assert port["jit_cache"] == ref["jit_cache"] == {**Engine.jit_cache_stats(), "scope": "process"}
@@ -190,10 +189,9 @@ def _metric_lines(text):
     return keep
 
 
-def test_render_metrics_equals_the_reference_but_the_jit_gauge(runs):
+def test_render_metrics_equals_the_reference_with_the_jit_gauge(runs):
     """Every line equals the reference's, the ``reflex_jit_cache_logical``
-    gauge's (hits, misses, size) included. (The name is the one the test had
-    while the port had no jit gauge.)"""
+    gauge's (hits, misses, size) included."""
     _, tsvc, jsvc, _, _, _ = runs
     port, ref = tsvc.render_metrics(), jsvc.render_metrics()
     assert len([line for line in port.splitlines() if line.startswith("reflex_jit_cache_logical{")]) == 3
@@ -269,12 +267,11 @@ def test_service_defaults_to_cuda(data):
         AnalyticsService(tables)
 
 
-def test_jit_ops_raises_as_the_engine_does(data):
+def test_jit_ops_runs_and_equals_the_reference_service(data):
     """``jit_ops=True`` runs and equals the reference's jit service: the
     service runs the engine's per-operator cache, and two submits (a
     capture, then a replay) equal the reference's, the cache's logical
-    counters included. (The name is the one the test had while the port
-    refused ``jit_ops``.)"""
+    counters included."""
     tables, _ = data
     jtables, _ = jgenerate(**DATA)
     svc = AnalyticsService(tables, noise=tnoise.NoTrim(), placement="none", jit_ops=True,

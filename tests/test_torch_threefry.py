@@ -2,6 +2,7 @@
 import math
 
 import numpy as np
+import torch
 import pytest
 
 jax = pytest.importorskip("jax")
@@ -95,3 +96,40 @@ def test_setup_prf_fold_draw_and_zero_shares():
         ju = np.asarray(f.draw_uniform(shape))
         tu = t.draw_uniform(shape, "cpu").numpy()
         assert (ju.view(np.uint32) == tu.view(np.uint32)).all()
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 1000])
+@pytest.mark.parametrize("seeds", [(0,), (0, 42, 7), (1, 2, 3, 4, 5, 6)])
+def test_threefry_kernel_wrapper_on_cpu_equals_jax(seeds, n):
+    """The ``threefry_bits`` wrapper on the CPU (its plain version): row r
+    is ``jax.random.bits`` of key r; ``bits_each`` and ``uniform_each``
+    equal the per-key draws."""
+    from repro_torch.kernels.threefry import draw
+
+    keys = torch.stack([threefry.PRNGKey(s) for s in seeds])
+    got = to_numpy(draw(keys, n, "cpu"))
+    want = np.stack([np.asarray(jax.random.bits(jax.random.PRNGKey(s), (n,), jnp.uint32)) for s in seeds])
+    assert got.shape == want.shape and (got == want).all()
+    shape = (n, 2)
+    each = threefry.bits_each(keys, shape, "cpu")
+    assert torch.equal(each, torch.stack([threefry.bits(k, shape, "cpu") for k in keys]))
+    uni = threefry.uniform_each(keys, shape, "cpu")
+    assert torch.equal(uni, torch.stack([threefry.uniform(k, shape) for k in keys]))
+
+
+def test_threefry_kernel_wrapper_routes_by_device():
+    """``meta`` gives an empty draw of the shape, an unknown device and
+    malformed keys raise, and device keys on the CPU equal host keys."""
+    from repro_torch.kernels.threefry import draw
+
+    keys = torch.stack([threefry.PRNGKey(s) for s in (3, 4, 5)])
+    out = draw(keys, 17, "meta")
+    assert out.is_meta and tuple(out.shape) == (3, 17) and out.dtype == torch.int32
+    assert threefry.bits(keys[0], (4, 5), "meta").shape == (4, 5)
+    with pytest.raises(ValueError, match="runs on cuda, cpu or meta"):
+        draw(keys, 17, "xpu")
+    with pytest.raises(ValueError, match="int32 keys"):
+        draw(keys.to(torch.int64), 17, "cpu")
+    with pytest.raises(ValueError, match="counter range"):
+        draw(keys, 1 << 31, "meta")
+    assert torch.equal(threefry.bits_dev(keys, (3, 4)), threefry.bits_each(keys, (3, 4), "cpu"))

@@ -3210,8 +3210,9 @@ def train_phase(dev, card: str) -> dict:
 # 13. sharding and the roofline on the card
 # ---------------------------------------------------------------------------
 
-# the one-card mesh: both production axes, each of extent 1
+# the one-card meshes: the single-pod and the multi-pod axes, each of extent 1
 SHARD_MESH = ((1, 1), ("data", "model"))
+SHARD_MESH_PODS = ((1, 1, 1), ("pod", "data", "model"))
 
 
 def open_mesh(dev, store_dir: str):
@@ -3232,7 +3233,7 @@ def open_mesh(dev, store_dir: str):
     return make_mesh(*SHARD_MESH, device_type=dev.type)
 
 
-def shard_cross_device(dev, mesh) -> dict:
+def shard_cross_device(dev, mesh, shape=SHARD_MESH[0]) -> dict:
     """All ten reduced architectures in f32 with TF32 off: one train step
     over DTensors on ``mesh`` (parameters by ``make_param_specs``, ZeRO-1
     moments, the batch by ``batch_specs``) equal to the same step on plain
@@ -3278,7 +3279,7 @@ def shard_cross_device(dev, mesh) -> dict:
         out[arch] = dict(errs, plain_s=plain_s, sharded_s=sharded_s)
         check(np.isfinite(float(m_sh["loss"])) and int(state_sh["count"]) == 1, f"{arch}: loss or count")
         check(all(e <= tol for e in errs.values()), f"{arch} sharded train step against unsharded {errs} above {tol}")
-        print(f"  {arch:18s} reduced f32 train step, DTensor on {SHARD_MESH[0]} vs plain {dev.type} scaled max "
+        print(f"  {arch:18s} reduced f32 train step, DTensor on {shape} vs plain {dev.type} scaled max "
               f"|diff|: loss {errs['loss']:.3g}, grad_norm {errs['grad_norm']:.3g}, params {errs['params']:.3g}, "
               f"AdamW state {errs['state']:.3g} (tolerance {tol:g}); {plain_s:.3f} s plain, {sharded_s:.3f} s "
               f"sharded")
@@ -3389,8 +3390,11 @@ def roofline_on_card(lm: dict, train: dict, card: str) -> dict:
 
 
 def shard_phase(dev, card: str, lm: dict, train: dict) -> dict:
-    """Phase 13: a one-rank process group and a (1, 1) mesh on ``dev``; the
-    reduced archs' sharded train step = the plain one; stablelm uncut
+    """Phase 13: a one-rank process group and a (1, 1) mesh on ``dev``, then
+    a (1, 1, 1) ("pod", "data", "model") mesh over the same group, where the
+    batch spans two axes (the attention core on local shards, the einsums,
+    the MoE layer and the sLSTM on the merged-batch view); on each, the
+    reduced archs' sharded train step = the plain one and stablelm uncut
     sharded = plain; then the roofline of phases 11 and 12's steps beside
     their measured times. No MPC kernel launches."""
     import tempfile
@@ -3416,6 +3420,22 @@ def shard_phase(dev, card: str, lm: dict, train: dict) -> dict:
                 torch.set_float32_matmul_precision(precision)
             print(f"  {TRAIN_ARCH} uncut, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, sharded vs plain on {dev}")
             full = shard_full_width(dev, card, mesh)
+            from repro_torch.launch.mesh import make_mesh
+
+            t_pods = time.perf_counter()
+            pods = make_mesh(*SHARD_MESH_PODS, device_type=dev.type)
+            print(f"  mesh {dict(zip(pods.mesh_dim_names, pods.shape))} on {pods.device_type}: the batch spans "
+                  f"two axes")
+            torch.set_float32_matmul_precision("highest")
+            try:
+                cross_pods = shard_cross_device(dev, pods, SHARD_MESH_PODS[0])
+            finally:
+                torch.set_float32_matmul_precision(precision)
+            print(f"  {TRAIN_ARCH} uncut, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, sharded on {SHARD_MESH_PODS[0]} vs "
+                  f"plain on {dev}")
+            full_pods = shard_full_width(dev, card, pods)
+            pods_s = time.perf_counter() - t_pods
+            print(f"  the {SHARD_MESH_PODS[0]} mesh's checks in {pods_s:.1f} s")
         finally:
             dist.destroy_process_group()
     print("  the port's roofline (repro_torch.launch.roofline, counted on meta, one card) beside phases 11 and "
@@ -3424,7 +3444,8 @@ def shard_phase(dev, card: str, lm: dict, train: dict) -> dict:
     check(launch_counts() == before, f"MPC kernels launched during phase 13: {before} -> {launch_counts()}")
     seconds = time.perf_counter() - t_phase
     print(f"  phase 13 in {seconds:.1f} s, no MPC kernel launched [{card}]")
-    return {"cross_device": cross, "full": full, "roofline": roof, "seconds": seconds}
+    return {"cross_device": cross, "full": full, "cross_device_pods": cross_pods, "full_pods": full_pods,
+            "pods_seconds": pods_s, "roofline": roof, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -4310,8 +4331,8 @@ def main(argv=None) -> int:
           "launcher): no TPU kernel lies on it")
     train = train_phase(dev, card)
 
-    print("[13] the LM side's multi-device stack (sharding rules, a one-rank NCCL mesh, the roofline): no TPU "
-          "kernel lies on it")
+    print("[13] the LM side's multi-device stack (sharding rules, one-rank NCCL (1, 1) and (1, 1, 1) meshes, the "
+          "roofline): no TPU kernel lies on it")
     sharded = shard_phase(dev, card, lm, train)
 
     print(f"[14] the serving configuration under jit_ops=True (the per-operator cache as CUDA graphs) at "

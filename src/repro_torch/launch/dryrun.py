@@ -24,15 +24,25 @@ For every cell:
 
 The port walks the layer groups in a Python loop (``scan_layers`` is a
 no-op), so the counter sees every layer of the full depth and ``run_cell``
-needs no extrapolation. The reference's 1-group / 2-group extrapolation
-(which exists because ``lax.scan`` hides the body's cost from XLA's cost
-analysis) is kept as :func:`extrapolated_costs`: on a depth-homogeneous
-stack it equals the full-depth count.
+needs no extrapolation in depth. The reference's 1-group / 2-group
+extrapolation (which exists because ``lax.scan`` hides the body's cost from
+XLA's cost analysis) is kept as :func:`extrapolated_costs`: on a
+depth-homogeneous stack it equals the full-depth count. In time, the
+sLSTM's 4,096-32,768 steps are not walked through DTensor: a step whose
+model has an sLSTM layer is counted at walks of 4 and 8 time steps and
+extrapolated (:func:`count_step`), which equals the full walk.
+
+On the multi-pod mesh the batch spans two mesh axes; there the models run
+the attention core on local shards and their einsums, MoE layers and sLSTM
+layers on the mesh's view with the batch axes merged
+(``repro_torch.sharding.placement``), so DTensor never plans through a
+strided shard.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun                      # all cells
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mixtral-8x7b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mixtral_8x7b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --multi-pod-only
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --merge parts/*.json  # rows of cells run apart
 """
 from __future__ import annotations
 
@@ -49,8 +59,9 @@ from typing import Dict, Iterator, Optional
 import torch
 
 from ..configs import ARCH_IDS, get_config
-from ..configs.shapes import SHAPE_NAMES, input_specs, shape_applicable
+from ..configs.shapes import SHAPE_DEFS, SHAPE_NAMES, input_specs, shape_applicable
 from ..models import abstract_params
+from ..models.recurrent import slstm_walk
 from ..serve.serve_step import make_prefill_step, make_serve_step
 from ..sharding import batch_specs, cache_specs, distribute_tree, make_param_specs, sharded_region
 from ..train import AdamWConfig, adamw_init, make_train_step, place_train_state
@@ -101,19 +112,67 @@ def build_cell(arch: str, shape_name: str, mesh, opt_overrides: Optional[Dict] =
     return cfg, make_serve_step(cfg), (params, caches, batch)
 
 
-def count_step(step, args) -> StepCounter:
-    """Run ``step(*args)`` once under a :class:`StepCounter`."""
-    with meta_equal(), sharded_region(True), StepCounter() as counter:
-        step(*args)
-    return counter
+# the two sLSTM walk lengths a long step is counted at (see count_step)
+SLSTM_WALKS = (4, 8)
+
+
+def walked_steps(cfg, shape_name: str) -> Optional[int]:
+    """The time steps each sLSTM layer of the cell walks, where its count
+    is extrapolated in time (a train or prefill step of a model with an
+    sLSTM layer, longer than the walks); else None."""
+    d = SHAPE_DEFS[shape_name]
+    if "S" not in cfg.block_pattern or d["step"] == "decode" or d["seq"] <= SLSTM_WALKS[-1]:
+        return None
+    return d["seq"]
+
+
+def count_step(step, args, steps: Optional[int] = None) -> StepCounter:
+    """Run ``step(*args)`` once under a :class:`StepCounter`.
+
+    With ``steps`` (:func:`walked_steps`), the whole step runs once at each
+    of ``SLSTM_WALKS``, its sLSTM layers walking that many time steps
+    (``slstm_walk``), and each count is extrapolated linearly to ``steps``:
+    the time counterpart of :func:`extrapolated_costs`. A count that is not
+    linear in the walk raises."""
+    if steps is None:
+        with meta_equal(), sharded_region(True), StepCounter() as counter:
+            step(*args)
+        return counter
+    counts = []
+    for n in SLSTM_WALKS:
+        with slstm_walk(n), meta_equal(), sharded_region(True), StepCounter() as counter:
+            step(*args)
+        counts.append(counter)
+    return _in_time(counts, steps)
+
+
+def _in_time(counts, steps: int) -> StepCounter:
+    """The counts at ``SLSTM_WALKS``, extrapolated to ``steps`` walked."""
+    (n1, n2), (c1, c2) = SLSTM_WALKS, counts
+
+    def lin(a: int, b: int, what: str) -> int:
+        slope, rest = divmod(b - a, n2 - n1)
+        if rest:
+            raise RuntimeError(f"the sLSTM walk's {what} is not linear in its length: {a} at {n1}, {b} at {n2}")
+        return a + slope * (steps - n1)
+
+    out = StepCounter()
+    out.flops = lin(c1.flops, c2.flops, "FLOPs")
+    out.bytes = lin(c1.bytes, c2.bytes, "bytes")
+    out.ops = lin(c1.ops, c2.ops, "operations")
+    for field in ("bytes_by_kind", "count_by_kind"):
+        one, two = getattr(c1.collectives, field), getattr(c2.collectives, field)
+        setattr(out.collectives, field,
+                {k: lin(one.get(k, 0), two.get(k, 0), f"{k} {field}") for k in sorted(set(one) | set(two))})
+    return out
 
 
 def _measure(arch, shape_name, mesh, n_layers, opt_overrides) -> Dict:
     """The counted costs of the cell cut to ``n_layers`` layers."""
     ov = dict(opt_overrides or {})
     ov["n_layers"] = n_layers
-    _, step, args = build_cell(arch, shape_name, mesh, ov)
-    counter = count_step(step, args)
+    cfg, step, args = build_cell(arch, shape_name, mesh, ov)
+    counter = count_step(step, args, walked_steps(cfg, shape_name))
     ca = cost_analysis_of(counter)
     coll = counter.collectives
     return {
@@ -169,7 +228,8 @@ def run_cell(
             cfg2, step, args = build_cell(arch, shape_name, mesh, opt_overrides)
             t_build = time.time() - t0
             argument_bytes = local_bytes(args)
-            counter = count_step(step, args)
+            steps = walked_steps(cfg2, shape_name)
+            counter = count_step(step, args, steps)
             chips = mesh_chips(mesh)
         ca = cost_analysis_of(counter)
         coll = counter.collectives
@@ -196,6 +256,8 @@ def run_cell(
                 "memory_analysis": memory_analysis_of(argument_bytes),
                 "ops": int(ca["ops"]),
                 "analytic_bytes": analytic_bytes_for(cfg2, shape_name),
+                # the sLSTM's time steps counted at SLSTM_WALKS and extrapolated
+                "slstm_walks": list(SLSTM_WALKS) if steps else None,
             }
         )
         return row
@@ -216,6 +278,8 @@ def main(argv=None) -> None:
     ap.add_argument("--multi-pod-only", action="store_true")
     ap.add_argument("--out", default=os.path.join(ARTIFACT, "dryrun_torch.json"))
     ap.add_argument("--append", action="store_true")
+    ap.add_argument("--merge", nargs="+", default=None,
+                    help="artifacts of cells run apart (one process each): write their rows into --out, run none")
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else ARCH_IDS
@@ -231,6 +295,15 @@ def main(argv=None) -> None:
     if args.append and os.path.exists(args.out):
         with open(args.out) as f:
             rows = json.load(f)
+
+    if args.merge:
+        for path in args.merge:
+            with open(path) as f:
+                rows += [r for r in json.load(f) if (r["arch"], r["shape"], r["mesh"]) not in
+                         {(q["arch"], q["shape"], q["mesh"]) for q in rows}]
+        with open(args.out, "w") as f:
+            json.dump(rows, f, indent=1)
+        archs = []
 
     for arch in archs:
         for shape in shapes:

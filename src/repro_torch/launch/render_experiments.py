@@ -37,11 +37,20 @@ def fmt(x: float) -> str:
     return f"{x:.2e}"
 
 
+def cpu_seconds(r) -> str:
+    """The cell's seconds on the CPU that ran the dry-run, and how its
+    sLSTM was counted where the walk was extrapolated in time."""
+    out = f"{r['total_s']:.1f}" if "total_s" in r else ""
+    if r.get("slstm_walks"):
+        out += " (sLSTM walks {} and {}, extrapolated)".format(*r["slstm_walks"])
+    return out
+
+
 def roofline_table(rows) -> str:
     header = (
         "| arch | shape | mesh | t_comp (s) | t_mem (s) | t_coll (s) | bound | "
-        "MODEL/counted flops | roofline frac | args/device (GiB) |\n"
-        "|---|---|---|---|---|---|---|---|---|---|\n"
+        "MODEL/counted flops | roofline frac | args/device (GiB) | CPU s |\n"
+        "|---|---|---|---|---|---|---|---|---|---|---|\n"
     )
     lines = []
     for r in sorted(rows, key=lambda r: (r["arch"], r["shape"], r["mesh"])):
@@ -59,7 +68,7 @@ def roofline_table(rows) -> str:
             f"| {r['arch']} | {r['shape']} | {r['mesh']} | {fmt(r['t_compute_s'])} | "
             f"{fmt(r['t_memory_s'])} | {fmt(r['t_collective_s'])} | {r['bottleneck']} | "
             f"{r['useful_flops_ratio']:.2f} | {r['roofline_fraction']:.4f} | "
-            f"{r['bytes_per_device'] / 2**30:.2f} |"
+            f"{r['bytes_per_device'] / 2**30:.2f} | {cpu_seconds(r)} |"
         )
     return header + "\n".join(lines)
 

@@ -23,19 +23,30 @@ Scores are masked and normalised exactly as the reference writes them:
 behind its safe-max guard; neither goes through
 ``scaled_dot_product_attention``.
 
-On a mesh the tensors are DTensors: the einsums and the GQA reshape go
-through ``repro_torch.sharding``'s ``einsum`` / ``reshape``, which gather
-what DTensor cannot carry through a view, and ``attn_sp`` constrains the
-queries; on plain tensors they are ``torch.einsum`` and ``Tensor.reshape``.
+On a mesh the tensors are DTensors: the projections go through
+``repro_torch.sharding``'s ``einsum``, which gathers what DTensor cannot
+carry through a view, ``attn_sp`` constrains the queries, and the core
+(scores, mask, softmax, the weighted sum) runs on each device's local
+shards (``run_local``), so DTensor never plans a layout for the einsums'
+flattened (batch, heads) axis. On plain tensors each is the plain op.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..sharding.placement import einsum, reshape, with_sharding_constraint
+from ..sharding.placement import (
+    WHOLE,
+    batch_spans_axes,
+    einsum,
+    is_sharded,
+    reshape,
+    run_local,
+    with_sharding_constraint,
+)
 from ..sharding.rules import P, data_axes
 from .layers import dense_init, index_scalar, rope
 
@@ -91,14 +102,70 @@ def _mask(cfg, s_q: int, s_k: int, device, q_offset: int = 0) -> torch.Tensor:
     return m
 
 
+# The attention core (scores, mask, softmax, the weighted sum) on a mesh runs
+# on each device's local shards (``run_local``). Its axes: b batch, s query
+# rows, t key rows, h query heads, g KV heads, d the q.k contraction, e the
+# value features. Each mesh dimension splits the batch, the heads (query and
+# KV heads together, or the query heads alone where the KV heads do not
+# divide), the query rows, or the contraction (then the scores are summed
+# across it), or none; DTensor never sees the einsums' (b, h) batch axis.
+_CORE_MODES = ("b", "hg", "h", "s", "de")
+_QKV = ("bshd", "btgd", "btge")
+
+
+def _core(fn, operands, *how):
+    """``fn`` on local shards (``run_local(fn, operands, *how)``) where the
+    operands are DTensors on a mesh whose batch spans two axes ("pod",
+    "data"): there DTensor's propagation of the einsums' flattened
+    (batch, heads) axis plans every layout through a strided shard, minutes
+    an operation. Elsewhere ``fn`` runs on the operands as they are: on a
+    2-D mesh DTensor's own propagation lays the core out, as it always has."""
+    mesh = next((t.device_mesh for t in operands if is_sharded(t)), None)
+    if mesh is None or not batch_spans_axes(mesh):
+        return fn(WHOLE, *operands)
+    return run_local(fn, operands, *how)
+
+
+def _core_judge(mode, sizes, split, extent):
+    """Whether ``mode`` fits, and the bytes it adds inside the core."""
+    if mode == "hg":
+        return split["h"] == split["g"], 0
+    if mode == "h":  # each device's query heads read a slice of the KV heads
+        if split["g"] > 1 or split["h"] > 1:
+            return False, 0
+        local, rep = sizes["h"] // extent, sizes["h"] // sizes["g"]
+        return local % rep == 0 or rep % local == 0, 0
+    if mode == "de":  # an all-reduce of the f32 scores
+        shards = split["b"] * split["h"] * split["s"]
+        return True, sizes["b"] * sizes["h"] * sizes["s"] * sizes["t"] * 4 // shards
+    return True, 0
+
+
+def _kv_for(sh, h: int, k, v):
+    """The KV heads that this device's ``h`` query heads read: all it holds,
+    or (the query heads split where the KV heads are whole) their groups'."""
+    hs, h_all = sh.span("h", h)
+    gs, g_all = sh.span("g", k.shape[2])
+    rep = h_all // g_all
+    g0, gn = hs // rep, max(1, h // rep)
+    if (g0, gn) == (gs, k.shape[2]):
+        return k, v
+    return k[:, :, g0 - gs : g0 - gs + gn], v[:, :, g0 - gs : g0 - gs + gn]
+
+
 def _sdpa(q, k, v, mask) -> torch.Tensor:
     """q: (B,S,H,Dh), k/v: (B,T,Hkv,Dh[v]) with H % Hkv == 0."""
+    return _core(_sdpa_local, (q, k, v, mask), _QKV + ("st",), ("bshe",), _CORE_MODES, _core_judge, "de")
+
+
+def _sdpa_local(sh, q, k, v, mask):
     b, s, h, dh = q.shape
+    k, v = _kv_for(sh, h, k, v)
     hkv = k.shape[2]
     rep = h // hkv
     qg = reshape(q, b, s, hkv, rep, dh)
-    scores = einsum("bshrd,bthd->bhrst", qg, k).float()
-    scores = scores / math.sqrt(dh)
+    scores = sh.psum(einsum("bshrd,bthd->bhrst", qg, k).float())
+    scores = scores / math.sqrt(sh.span("d", dh)[1])
     scores = torch.where(mask, scores, NEG)
     p = torch.softmax(scores, dim=-1).to(q.dtype)
     out = einsum("bhrst,bthd->bshrd", p, v)
@@ -123,6 +190,8 @@ def _sdpa_chunked(cfg, q, kv_fn: Callable, n_t: int) -> torch.Tensor:
 
     ``kv_fn(t0, c) -> (k_chunk, v_chunk)`` lets MLA build per-head K/V from
     the latent chunk on the fly (never materializing the full per-head K).
+    On a mesh each chunk's step runs on local shards, the running max, sum
+    and accumulator passed from one chunk's step to the next.
     """
     b, s, h, dh = q.shape
     chunk = min(cfg.attn_chunk, n_t)
@@ -134,29 +203,38 @@ def _sdpa_chunked(cfg, q, kv_fn: Callable, n_t: int) -> torch.Tensor:
         t0 = ci * chunk
         c = min(chunk, n_t - t0)
         k_c, v_c = kv_fn(t0, c)  # (B,c,Hkv,dh), (B,c,Hkv,dv)
-        hkv = k_c.shape[2]
-        rep = h // hkv
-        qg = reshape(q, b, s, hkv, rep, dh)
-        sc = einsum("bshrd,bthd->bhrst", qg, k_c).float()
-        sc = sc.reshape(b, h, s, c) / math.sqrt(dh)
         msk = _mask_chunk(cfg, s, t0, c, q.device)
-        sc = torch.where(msk, sc, -math.inf)
-        m_new = torch.maximum(m, sc.amax(dim=-1))
-        # fully-masked-so-far rows (e.g. SWA rows before their window) keep
-        # m = -inf; shift against a safe max so exp never sees inf - inf
-        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        alpha = torch.exp(m - m_safe)
-        p = torch.exp(sc - m_safe[..., None])
-        l = l * alpha + p.sum(dim=-1)
-        pv = einsum(
-            "bhrst,bthd->bshrd", p.reshape(b, hkv, rep, s, c).to(q.dtype), v_c
-        ).reshape(b, s, h, v_c.shape[-1])
-        if acc is None:
-            acc = pv * 0.0
-        acc = acc * alpha.permute(0, 2, 1)[..., None].to(q.dtype) + pv
-        m = m_new
+        m, l, acc = _core(_chunk_local, (q, k_c, v_c, msk, m, l, acc), _QKV + ("st", "bhs", "bhs", "bshe"),
+                              ("bhs", "bhs", "bshe"), _CORE_MODES, _core_judge, "de")
     den = l.permute(0, 2, 1)[..., None]  # (B,S,H,1)
     return (acc / torch.clamp(den, min=1e-20).to(acc.dtype)).to(q.dtype)
+
+
+def _chunk_local(sh, q, k_c, v_c, msk, m, l, acc):
+    """One KV chunk of :func:`_sdpa_chunked` on local tensors."""
+    b, s, h, dh = q.shape
+    c = k_c.shape[1]
+    k_c, v_c = _kv_for(sh, h, k_c, v_c)
+    hkv = k_c.shape[2]
+    rep = h // hkv
+    qg = reshape(q, b, s, hkv, rep, dh)
+    sc = sh.psum(einsum("bshrd,bthd->bhrst", qg, k_c).float())
+    sc = sc.reshape(b, h, s, c) / math.sqrt(sh.span("d", dh)[1])
+    sc = torch.where(msk, sc, -math.inf)
+    m_new = torch.maximum(m, sc.amax(dim=-1))
+    # fully-masked-so-far rows (e.g. SWA rows before their window) keep
+    # m = -inf; shift against a safe max so exp never sees inf - inf
+    m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    alpha = torch.exp(m - m_safe)
+    p = torch.exp(sc - m_safe[..., None])
+    l = l * alpha + p.sum(dim=-1)
+    pv = einsum(
+        "bhrst,bthd->bshrd", p.reshape(b, hkv, rep, s, c).to(q.dtype), v_c
+    ).reshape(b, s, h, v_c.shape[-1])
+    if acc is None:
+        acc = pv * 0.0
+    acc = acc * alpha.permute(0, 2, 1)[..., None].to(q.dtype) + pv
+    return m_new, l, acc
 
 
 # -----------------------------------------------------------------------------
@@ -343,11 +421,17 @@ def _sdpa_decode_bf16(q, k, v, mask):
     """The reference's ``decode_score_dtype="bf16"`` route: an additive mask
     and a hand-written softmax. Its scores are divided by a NumPy float64
     ``sqrt(dh)``, which JAX promotes to f32, so they are f32 here too."""
+    return _core(_decode_bf16_local, (q, k, v, mask), _QKV + ("st",), ("bshe",), _CORE_MODES, _core_judge,
+                     "de")
+
+
+def _decode_bf16_local(sh, q, k, v, mask):
     b, s, h, dh = q.shape
+    k, v = _kv_for(sh, h, k, v)
     hkv = k.shape[2]
     rep = h // hkv
     qg = reshape(q, b, s, hkv, rep, dh)
-    scores = einsum("bshrd,bthd->bhrst", qg, k).float() / math.sqrt(dh)
+    scores = sh.psum(einsum("bshrd,bthd->bhrst", qg, k).float()) / math.sqrt(sh.span("d", dh)[1])
     addmask = torch.where(mask, 0.0, NEG).to(scores.dtype)
     scores = scores + addmask
     m = torch.amax(scores, dim=-1, keepdim=True)
@@ -378,13 +462,30 @@ def _mla_decode(params, cfg, x, cache, pos):
     # absorb the up-projections into the query side (the MLA decode trick):
     # score = q_nope . (ckv W_uk) + q_rope . kr  ==  (q_nope W_uk^T) . ckv + ...
     q_lat = einsum("bshk,rhk->bshr", q_nope, params["w_uk"].to(dt))
-    s_lat = einsum("bshr,btr->bhst", q_lat, ckv)
-    s_rope = einsum("bshk,btk->bhst", q_rope, kr)
-    scores = (s_lat + s_rope).float() / math.sqrt(dn + dr)
     valid = torch.arange(ckv.shape[1], device=x.device) < (idx + 1)
-    scores = torch.where(valid, scores, NEG)
-    p = torch.softmax(scores, dim=-1).to(dt)
-    ctx = einsum("bhst,btr->bshr", p, ckv)  # context in latent space
+    ctx = _core(functools.partial(_mla_core_local, math.sqrt(dn + dr)), (q_lat, q_rope, ckv, kr, valid),
+                    ("bshr", "bshk", "btr", "btk", "t"), ("bshr",), _MLA_MODES, _mla_judge, "rk")
     out = einsum("bshr,rhk->bshk", ctx, params["w_uv"].to(dt))
     y = einsum("bshk,hkd->bsd", out, params["w_o"].to(dt))
     return y, {"ckv": ckv, "kr": kr, "idx": idx + 1}
+
+
+# MLA decode's latent-space core: b batch, s the query, t cache rows, h heads,
+# r the latent rank, k the shared RoPE key; a mesh dimension splits the
+# batch, the heads, or both contractions (the scores summed across it)
+_MLA_MODES = ("b", "h", "rk")
+
+
+def _mla_judge(mode, sizes, split, extent):
+    if mode == "rk":
+        return True, sizes["b"] * sizes["h"] * sizes["s"] * sizes["t"] * 4 // (split["b"] * split["h"])
+    return True, 0
+
+
+def _mla_core_local(scale, sh, q_lat, q_rope, ckv, kr, valid):
+    s_lat = einsum("bshr,btr->bhst", q_lat, ckv)
+    s_rope = einsum("bshk,btk->bhst", q_rope, kr)
+    scores = sh.psum((s_lat + s_rope).float()) / scale
+    scores = torch.where(valid, scores, NEG)
+    p = torch.softmax(scores, dim=-1).to(q_lat.dtype)
+    return einsum("bhst,btr->bshr", p, ckv)  # context in latent space

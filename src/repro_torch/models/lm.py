@@ -32,7 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import resolve_device
-from ..sharding.placement import einsum, reduce_partial, with_sharding_constraint
+from ..sharding.placement import einsum, on_merged_batch, reduce_partial, with_sharding_constraint
 from ..sharding.rules import P, data_axes
 from . import attention as attn
 from . import recurrent as rec
@@ -218,16 +218,15 @@ def _apply_block(cfg, p, kind, x, positions, return_cache=False):
         mixed, cache = attn.attn_apply(p["mixer"], cfg, h, positions, return_cache)
     elif kind == "R":
         mixed, cache = rec.rglru_apply(p["mixer"], cfg, h, positions, return_cache)
-    elif kind == "M":
-        mixed, cache = rec.mlstm_apply(p["mixer"], cfg, h, positions, return_cache)
-    else:
-        mixed, cache = rec.slstm_apply(p["mixer"], cfg, h, positions, return_cache)
+    else:  # xLSTM: on a multi-pod mesh, its head views and time loop plan on a 2-D mesh
+        mixer = rec.mlstm_apply if kind == "M" else rec.slstm_apply
+        mixed, cache = on_merged_batch(mixer, p["mixer"], cfg, h, positions, return_cache)
     x = x + mixed
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if _has_ffn(cfg, kind):
         h2 = apply_norm(p["norm2"], x, cfg.norm_type)
         if cfg.ffn_type == "moe":
-            y, aux = moe_apply(p["ffn"], cfg, h2)
+            y, aux = on_merged_batch(moe_apply, p["ffn"], cfg, h2)
         else:
             y = apply_mlp(p["ffn"], h2, cfg.ffn_type)
         x = x + y
@@ -348,7 +347,7 @@ def _decode_block(cfg, p, kind, x, cache):
     if _has_ffn(cfg, kind):
         h2 = apply_norm(p["norm2"], x, cfg.norm_type)
         if cfg.ffn_type == "moe":
-            y, _ = moe_apply(p["ffn"], cfg, h2)
+            y, _ = on_merged_batch(moe_apply, p["ffn"], cfg, h2)
         else:
             y = apply_mlp(p["ffn"], h2, cfg.ffn_type)
         x = x + y

@@ -15,13 +15,15 @@ repair it.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Callable, Dict, List
+from typing import Callable, Dict, Iterator, List
 
 import torch
 import torch.nn.functional as F
 
-from ..sharding.placement import einsum, with_sharding_constraint
+from ..sharding.placement import einsum, reshape_whole, run_local, with_sharding_constraint
 from ..sharding.rules import P, data_axes
 from .layers import dense_init, index_scalar, uniform_init
 
@@ -39,6 +41,7 @@ __all__ = [
     "slstm_apply",
     "slstm_init_cache",
     "slstm_decode",
+    "slstm_walk",
 ]
 
 C_RGLRU = 8.0
@@ -200,25 +203,47 @@ def mlstm_apply(params, cfg, x, positions, return_cache=False):
     log_i = uf @ params["w_i"]  # (B,S,H)
     log_f = F.logsigmoid(uf @ params["w_f"] + params["b_f"])
     cf = torch.cumsum(log_f, dim=1)  # F_t
-    # D[t, s] = F_t - F_s + log_i_s  (s <= t)
-    dmat = cf[:, :, None, :] - cf[:, None, :, :] + log_i[:, None, :, :]
-    tpos = torch.arange(s, device=x.device)
-    causal = tpos[:, None] >= tpos[None, :]
-    dmat = torch.where(causal[None, :, :, None], dmat, -math.inf)
-    m = torch.amax(dmat, dim=2, keepdim=True)  # (B,S,1,H)
-    w = torch.exp(dmat - m)  # (B,S,S,H)
-    scores = einsum("bshk,bthk->bsth", q, k).float() / math.sqrt(dh)
-    ww = w * scores
-    num = einsum("bsth,bthk->bshk", ww.to(dt), v)
-    den = torch.abs(torch.sum(ww, dim=2))  # (B,S,H)
-    den = torch.maximum(den, torch.exp(-m[:, :, 0, :]))
-    out = num / den[..., None].to(dt)
-    mixed = out.reshape(b, s, d)
+    mixed = run_local(functools.partial(_mlstm_core, math.sqrt(dh)), (q, k, v, log_i, cf),
+                      ("bshd", "bthd", "bthe", "bth", "bth"), ("bsh",), _MLSTM_MODES, _mlstm_judge, "de")
     y = (mixed * F.silu(gate.float()).to(dt)) @ params["w_down"].to(dt)
     cache = None
     if return_cache:
         cache = _mlstm_state_from_seq(k, v, log_i, log_f)
     return y, cache
+
+
+# The quadratic form's core on a mesh runs on local shards (``run_local``):
+# b batch, s / t query and key steps, h heads, d the q.k contraction, e the
+# value features; a mesh dimension splits the batch, the heads, or the
+# contraction (the scores summed across it, the output's features gathered
+# before the heads merge). DTensor's own layout of its (B,S,S,H) terms can
+# split the batch over more devices than it has rows, and it cannot view a
+# head axis back out of features split over more devices than heads.
+_MLSTM_MODES = ("b", "h", "de")
+
+
+def _mlstm_judge(mode, sizes, split, extent):
+    if mode == "de":  # an all-reduce of the f32 scores
+        return True, sizes["b"] * sizes["s"] * sizes["t"] * sizes["h"] * 4 // (split["b"] * split["h"])
+    return True, 0
+
+
+def _mlstm_core(scale, sh, q, k, v, log_i, cf):
+    s = q.shape[1]
+    # D[t, s] = F_t - F_s + log_i_s  (s <= t)
+    dmat = cf[:, :, None, :] - cf[:, None, :, :] + log_i[:, None, :, :]
+    tpos = torch.arange(s, device=q.device)
+    causal = tpos[:, None] >= tpos[None, :]
+    dmat = torch.where(causal[None, :, :, None], dmat, -math.inf)
+    m = torch.amax(dmat, dim=2, keepdim=True)  # (B,S,1,H)
+    w = torch.exp(dmat - m)  # (B,S,S,H)
+    scores = sh.psum(einsum("bshk,bthk->bsth", q, k).float()) / scale
+    ww = w * scores
+    num = einsum("bsth,bthk->bshk", ww.to(q.dtype), v)
+    den = torch.abs(torch.sum(ww, dim=2))  # (B,S,H)
+    den = torch.maximum(den, torch.exp(-m[:, :, 0, :]))
+    out = sh.gather(num / den[..., None].to(q.dtype), "e", 3)
+    return out.reshape(out.shape[0], s, -1)  # (B,S,D): its features split as the heads are
 
 
 def _mlstm_state_from_seq(k, v, log_i, log_f):
@@ -272,6 +297,30 @@ def mlstm_decode(params, cfg, x, cache):
 # sLSTM (xLSTM): scalar memory, strictly sequential
 # =============================================================================
 
+# the dry-run's walk length (None: every time step); see slstm_walk
+_WALK = None
+
+
+@contextlib.contextmanager
+def slstm_walk(steps: int) -> Iterator[None]:
+    """While active, :func:`slstm_apply` walks only the first ``steps`` time
+    steps and repeats the last step's output for the rest: a count-only
+    mode, for a step over ``meta`` tensors (the dry-run), never for values.
+
+    Every step of the walk issues the same operations on the same shapes
+    and layouts, and each repeated output adds one gradient accumulation of
+    one fixed size, so a step's counts are linear in ``steps``: counting at
+    two walk lengths and extrapolating to the sequence length gives the
+    full walk's counts without dispatching thousands of steps through
+    DTensor (``repro_torch.launch.dryrun.count_step``)."""
+    global _WALK
+    before, _WALK = _WALK, steps
+    try:
+        yield
+    finally:
+        _WALK = before
+
+
 def slstm_init(generator, cfg, device=None) -> Dict:
     d = cfg.d_model
     h = cfg.n_heads
@@ -323,10 +372,12 @@ def slstm_apply(params, cfg, x, positions, return_cache=False):
         torch.zeros((b, h, dh), dtype=f32, device=x.device),
     )
     hs = []
-    for t in range(s):
+    walk = s if _WALK is None else min(_WALK, s)
+    for t in range(walk):
         carry, h_t = _slstm_step(params, carry, tuple(g[t] for g in gates))
         hs.append(h_t)
-    hs = torch.stack(hs, dim=1).reshape(b, s, d).to(dt)
+    hs += [h_t] * (s - walk)  # a cut walk (counting only): the last output stands in for the rest
+    hs = reshape_whole(torch.stack(hs, dim=1), b, s, d).to(dt)
     y = hs @ params["w_out"].to(dt)
     cache = None
     if return_cache:

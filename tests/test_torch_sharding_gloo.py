@@ -1,5 +1,6 @@
 """The sharded train step rehearsed on the CPU: four processes on ``gloo``
-with a (2, 2) ("data", "model") mesh (``tests/torch_sharding_worker.py``,
+with a (2, 2) ("data", "model") mesh and a (2, 1, 2) ("pod", "data",
+"model") mesh (``tests/torch_sharding_worker.py``,
 one process per rank, joined through a ``FileStore`` in ``tmp_path``, so
 pytest-xdist workers never share a port).
 
@@ -65,6 +66,28 @@ def test_the_ranks_built_one_mesh_and_agree(ranks):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_loss_and_grads_equal_unsharded(ranks, arch):
     r = ranks[0][arch]
+    assert r["model_sharded"] and r["grad_layout_ok"]
+    assert r["loss"] <= tol(arch) and r["ce"] <= tol(arch)
+    assert r["grads"] <= tol(arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_multi_pod_mesh_sharded_loss_and_grads_equal_unsharded(ranks, arch):
+    """On (2, 1, 2) ("pod", "data", "model") the batch spans two mesh axes:
+    the attention core runs on local shards, the einsums and the MoE layer
+    on the mesh's view with its batch axes merged."""
+    assert all(r["pod_mesh"] == [["pod", "data", "model"], [2, 1, 2]] for r in ranks)
+    r = ranks[0][arch]["pod"]
+    assert r["model_sharded"] and r["grad_layout_ok"]
+    assert r["loss"] <= tol(arch) and r["ce"] <= tol(arch)
+    assert r["grads"] <= tol(arch)
+
+
+@pytest.mark.parametrize("arch", ("stablelm_1_6b", "xlstm_1_3b"))
+def test_multi_pod_mesh_split_contraction_equals_unsharded(ranks, arch):
+    """One head on (2, 1, 2): the core splits q.k's contraction over
+    "model" and sums the scores."""
+    r = ranks[0]["contraction"][arch]
     assert r["model_sharded"] and r["grad_layout_ok"]
     assert r["loss"] <= tol(arch) and r["ce"] <= tol(arch)
     assert r["grads"] <= tol(arch)

@@ -2,12 +2,14 @@
 
 Run as four processes on the CPU: ``python tests/torch_sharding_worker.py
 RANK WORLD STORE_PATH OUT_DIR``. They join a ``gloo`` process group through
-a ``FileStore`` and build a (2, 2) ("data", "model") mesh. For each reduced
+a ``FileStore`` and build a (2, 2) ("data", "model") mesh and a (2, 1, 2)
+("pod", "data", "model") mesh, the multi-pod mesh's shape. For each reduced
 architecture, every rank computes the unsharded loss, gradients and AdamW
-step and the sharded ones (parameters by ``make_param_specs``, the moments
-by ``zero1_specs``, the batch by ``batch_specs``), gathers the sharded
-trees and writes the scaled errors to ``OUT_DIR/rank<r>.json``; the
-checkpoint drill restores an unsharded checkpoint into the mesh and back.
+step and the sharded ones on (2, 2) (parameters by ``make_param_specs``,
+the moments by ``zero1_specs``, the batch by ``batch_specs``), and the
+sharded loss and gradients on (2, 1, 2), gathers the sharded trees and
+writes the scaled errors to ``OUT_DIR/rank<r>.json``; the checkpoint drill
+restores an unsharded checkpoint into the (2, 2) mesh and back.
 Imports only torch and the port.
 """
 import dataclasses
@@ -21,6 +23,7 @@ import torch.distributed as dist
 
 ARCHS = ("stablelm_1_6b", "mixtral_8x7b", "minicpm3_4b", "recurrentgemma_9b", "xlstm_1_3b")
 CONSTRAINED = ("stablelm_1_6b", "minicpm3_4b")  # attention and MLA: attn_sp's two sites
+CONTRACTION = ("stablelm_1_6b", "xlstm_1_3b")  # attention and mLSTM cores with one head
 SEED = 22
 BATCH, SEQ = 4, 16
 
@@ -49,7 +52,27 @@ def layouts(tree: dict) -> dict:
     return {path: [repr(p) for p in t.placements] for path, t in tree_items(tree)}
 
 
-def arch_case(arch: str, mesh) -> dict:
+def pod_case(cfg, params, batch, want: tuple, mesh) -> dict:
+    """The sharded loss and gradients on the multi-pod mesh's shape against
+    the unsharded ``want`` (loss, metrics, gradients)."""
+    from repro_torch.sharding import batch_specs, distribute_tree, gather_tree
+    from repro_torch.train import adamw_init, place_train_state
+    from repro_torch.train.train_step import loss_and_grads
+
+    loss, metrics, grads = want
+    p_sh, _ = place_train_state(cfg, params, adamw_init(params), mesh)
+    b_sh = distribute_tree(batch, batch_specs(cfg, batch, mesh), mesh)
+    loss_sh, metrics_sh, grads_sh = loss_and_grads(cfg, p_sh, b_sh)
+    return {
+        "loss": scalar_err(loss, loss_sh),
+        "ce": scalar_err(metrics["ce"], metrics_sh["ce"]),
+        "grads": scaled_err(grads, gather_tree(grads_sh)),
+        "grad_layout_ok": layouts(grads_sh) == layouts(p_sh),
+        "model_sharded": any(p[-1].startswith("Shard") for p in layouts(p_sh).values()),
+    }
+
+
+def arch_case(arch: str, mesh, pod_mesh) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
     from repro_torch.models import init_params
@@ -91,12 +114,31 @@ def arch_case(arch: str, mesh) -> dict:
                              for pm, mm in zip(layouts(p_sh).values(), layouts(s_sh["m"]).values())),
         "model_sharded": any(p[1].startswith("Shard") for p in layouts(p_sh).values()),
     }
+    out["pod"] = pod_case(cfg, params, batch, (loss, metrics, grads), pod_mesh)
     if arch in CONSTRAINED:  # the activation constraints on give the result they give off
         on = dataclasses.replace(cfg, constrain_acts=True, attn_sp=True)
         loss_on, _, grads_on = loss_and_grads(on, p_sh, b_sh)
         out["constrained_loss"] = scalar_err(loss_sh, loss_on)
         out["constrained_grads"] = scaled_err(gather_tree(grads_sh), gather_tree(grads_on))
     return out
+
+
+def contraction_case(arch: str, pod_mesh) -> dict:
+    """One head on (2, 1, 2): the heads cannot split over "model", so the
+    attention and mLSTM cores split their q.k contraction there and sum the
+    scores (all-reduces forward and back)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import init_params
+    from repro_torch.train.train_step import loss_and_grads
+
+    one = {"n_heads": 1, "n_kv_heads": 1, "head_dim": 64}
+    cfg = dataclasses.replace(get_config(arch).reduced(), **one)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    pipe = TokenPipeline(cfg.vocab_size, SEQ, BATCH, seed=SEED, d_model=cfg.d_model, mode=cfg.input_mode,
+                         n_prefix=cfg.n_prefix)
+    batch = {k: torch.from_numpy(v) for k, v in pipe.batch_at(0).items()}
+    return pod_case(cfg, params, batch, loss_and_grads(cfg, params, batch), pod_mesh)
 
 
 def checkpoint_case(mesh, rank: int) -> dict:
@@ -143,9 +185,12 @@ def main(rank: int, world: int, store_path: str, out_dir: str) -> None:
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     try:
         mesh = make_mesh((2, 2), ("data", "model"), "cpu")
-        result = {arch: arch_case(arch, mesh) for arch in ARCHS}
+        pod_mesh = make_mesh((2, 1, 2), ("pod", "data", "model"), "cpu")
+        result = {arch: arch_case(arch, mesh, pod_mesh) for arch in ARCHS}
+        result["contraction"] = {arch: contraction_case(arch, pod_mesh) for arch in CONTRACTION}
         result["checkpoint"] = checkpoint_case(mesh, rank)
         result["mesh"] = [list(mesh.mesh_dim_names), list(mesh.shape)]
+        result["pod_mesh"] = [list(pod_mesh.mesh_dim_names), list(pod_mesh.shape)]
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(result, f)
         dist.barrier()
